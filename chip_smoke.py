@@ -10,14 +10,25 @@ Phases, one JSON line each:
 3. kernels — each kernel against its plain PyTorch version at the main
             path's shapes (BASELINE config 4: 1024 agents, 72x16 sensor with
             a 360-bin fine panorama, 60 lags, 50 library views), with inputs
-            from ``numpy.random.default_rng(0)``; median times from CUDA events;
+            from ``numpy.random.default_rng(0)``; median times from CUDA events.
+            The fused lag kernel is also timed against the port's unfused
+            route for the same familiarity (pooled panorama -> candidate
+            views -> min-distance kernel -> window pool);
 4. main   — config 4 with the exact familiarity path (``spectral_cutoff=0``):
             train a 50-view library on the 512^2 blobs world, then a batched
-            episode of 1024 agents with ``fam_impl="kernel"``; every kernel's
-            launch count over that run must be > 0;
+            episode of 1024 agents with ``fam_impl="kernel"``; the launch
+            count of each of its three kernels over that run must be > 0;
 5. reference — the same episode with ``fam_impl="plain"``: success rates
             within 0.025, >= 99% of agents choose the same first candidate;
-6. golden — the port's own training plus a one-agent episode on the small
+6. lag    — the fused lag familiarity (``ops.lag.make_lag_fam``) on the
+            main episode's library and statics, at the agents' poses at the
+            start and after steps 16, 32 and 48: at ``hat_dtype="float32"``
+            >= 99.9% of tie-ordered candidates equal and familiarity within
+            rtol/atol 1e-5 of the main path's ``step.fam``; at the shipped
+            ``hat_dtype="bfloat16"`` the agreement is reported only (the JAX
+            lag prep pools without the bf16 box filter); the lag kernel's
+            launch count over the phase must be > 0;
+7. golden — the port's own training plus a one-agent episode on the small
             parity world against ``tests/golden_oracle_small.npz``.
 
 Then the card line, the kernels line and, last, ``{"ok": true, "device": ...}``.
@@ -39,7 +50,13 @@ import numpy as np
 import torch
 
 from navdv_torch import _build, ops
-from navdv_torch.agent import STATUS_REACHED, init_state, make_navigate_batch, make_statics
+from navdv_torch.agent import (
+    STATUS_REACHED,
+    init_state,
+    make_navigate_batch,
+    make_statics,
+    make_step_batched,
+)
 from navdv_torch.config import (
     AgentConfig,
     ScanConfig,
@@ -48,15 +65,27 @@ from navdv_torch.config import (
     baseline_config,
 )
 from navdv_torch.device import resolve_device
-from navdv_torch.familiarity import zscore
+from navdv_torch.familiarity import pack_library, zscore
 from navdv_torch.landscape import make_landscape
 from navdv_torch.metrics import episode_metrics, success_rate
-from navdv_torch.ops.familiarity import min_distance_rows, min_distance_rows_plain
+from navdv_torch.ops.familiarity import (
+    make_lib_min_kernel,
+    min_distance_rows,
+    min_distance_rows_plain,
+)
+from navdv_torch.ops.lag import lag_grid_geometry, lag_lib_min, lag_lib_min_plain, make_lag_fam
 from navdv_torch.ops.render import render_windows, render_windows_plain
 from navdv_torch.ops.window import window_gather, window_gather_plain
 from navdv_torch.oracle import resample_route
 from navdv_torch.routes import make_route
-from navdv_torch.sensor import polar_offsets, window_geometry
+from navdv_torch.sensor import (
+    make_pooled_panorama,
+    make_render_batch,
+    make_views_from_pooled,
+    polar_offsets,
+    scan_lag_sets,
+    window_geometry,
+)
 from navdv_torch.training import train_library
 from navdv_torch.trials import make_trials
 
@@ -67,6 +96,8 @@ PEAK_FLOP_PER_S = 67e12
 
 BATCH = 1024
 VIEWS = 50
+MAIN_KERNELS = ("window_gather", "render", "min_distance")
+LAG_POSE_STEPS = (0, 16, 32, 48)  # lag phase: poses at the start and after these steps
 ROUTE_LENGTH = 40.0
 ACCURACY_BAND = 0.025  # config 4's success-rate band (bench.py ACCURACY_BAND[4])
 SLEEP_CYCLES = 50_000_000  # ~25 ms at the H100's clock: outlasts enqueuing one run
@@ -261,7 +292,70 @@ def check_kernels(cfg: SimConfig, dev: torch.device) -> dict[str, dict]:
         ms=metrics["ssd"]["ms"], plain_ms=metrics["ssd"]["plain_ms"],
         ncc=metrics["ncc"], bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
+    results["lag_fam"] = check_lag_kernel(cfg, dev, rng)
     return results
+
+
+def check_lag_kernel(cfg: SimConfig, dev: torch.device, rng) -> dict:
+    """The fused lag kernel on raw config-4 panoramas and a random library:
+    against its plain version, against float64 (pooled in float64 too), and
+    timed beside the port's unfused route for the same familiarity."""
+    sensor, scan = cfg.sensor, cfg.scan
+    r, w, u, a_fine = sensor.n_radial, sensor.n_azimuth, sensor.az_upsample, sensor.n_fine
+    lags_np, window_idx = scan_lag_sets(scan)
+    n_lags, p = len(lags_np), sensor.n_pixels
+    pano = torch.from_numpy(rng.uniform(size=(BATCH, r, a_fine)).astype(np.float32)).to(dev)
+    lib = pack_library(torch.from_numpy(
+        rng.uniform(size=(VIEWS, r, w)).astype(np.float32)).to(dev))
+    lags = torch.from_numpy(lags_np.astype(np.int32)).to(dev)
+    args = (pano, lib.flat, lib.sq, sensor, lags)
+    got = lag_lib_min(*args)
+    plain = lag_lib_min_plain(*args)
+    p64 = pano.double()
+    s64 = sum(torch.roll(p64, -j, dims=2) for j in range(u)) / u
+    cols = torch.remainder(torch.arange(w, device=dev)[None, :] * u + lags.long()[:, None], a_fine)
+    c64 = s64.index_select(2, cols.reshape(-1)).reshape(BATCH, r, n_lags, w)
+    c64 = c64.permute(0, 2, 1, 3).reshape(BATCH, n_lags, p)
+    want = (-2.0 * (c64 @ lib.flat.double().T) + (c64 * c64).sum(2, keepdim=True)
+            + lib.sq.double()[None, None, :]).min(dim=2).values.clamp_min(0.0)
+    torch.cuda.synchronize()
+    plain_err = float((got - plain).abs().max())
+    require(torch.allclose(got, plain, rtol=1e-6, atol=1e-6),
+            f"lag kernel vs its plain version: max abs err {plain_err} beyond 1e-6")
+    diff = (got.double() - want).abs()
+    err = float(diff.max())
+    require(bool((diff <= 2e-3 + 2e-4 * want.abs()).all()),
+            f"lag kernel: max abs err {err} beyond rtol 2e-4 / atol 2e-3 vs float64")
+    del p64, s64, c64, want, diff
+
+    # the same familiarity f32[B, Nh], fused and through the unfused route
+    fused = make_lag_fam(sensor, scan, dev)
+    sensor_f32 = dataclasses.replace(sensor, hat_dtype="float32")  # rolled-add pooling
+    pooled = make_pooled_panorama(sensor_f32, dev)
+    views = make_views_from_pooled(sensor_f32, lags_np, dev)
+    lib_min = make_lib_min_kernel(sensor_f32, scan)
+    widx = torch.as_tensor(window_idx.astype(np.int64), device=dev)
+
+    def unfused():
+        return torch.min(lib_min(views(pooled(pano)), lib)[:, widx], dim=2).values
+
+    unfused_err = float((fused(pano, lib) - unfused()).abs().max())
+    require(unfused_err <= 1e-5, f"lag familiarity vs the unfused route: {unfused_err} > 1e-5")
+    _, nq, _, _ = lag_grid_geometry(sensor, scan)
+    flops = 2.0 * BATCH * n_lags * p * (VIEWS + 1) + BATCH * r * a_fine * u  # + pooling
+    b_ms, b_by = bound(nbytes(pano, lib.flat, lib.sq, lags) + BATCH * n_lags * 4, flops)
+    return dict(
+        route="cuda", source="navdv_torch/csrc/lag_fam.cu",
+        replaces="navdv_tpu/ops/lag_pallas.py:84",
+        max_abs_err=err, tolerance="rtol 2e-4, atol 2e-3 vs float64",
+        plain_max_abs_err=plain_err, unfused_max_abs_err=unfused_err,
+        ms=time_ms(lambda: lag_lib_min(*args)),
+        plain_ms=time_ms(lambda: lag_lib_min_plain(*args)),
+        fam_ms=time_ms(lambda: fused(pano, lib)),
+        unfused_ms=time_ms(unfused),
+        lags=n_lags, tpu_grid_rows=nq * u,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
 
 
 def run_main_path(cfg, land, route):
@@ -278,7 +372,7 @@ def run_main_path(cfg, land, route):
     final, rec = run(states0, st)
     rate = float(success_rate(final))  # waits for the episode
     wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    counts = {name: ops.launch_counts()[name] for name in MAIN_KERNELS}
     for name, n in counts.items():
         require(n > 0, f"kernel {name} was not launched on the main path")
 
@@ -327,6 +421,51 @@ def run_reference(cfg, st, states0, final, rec) -> None:
     require(abs(rate_k - rate_p) <= ACCURACY_BAND,
             f"success rates differ: kernel {rate_k} vs plain {rate_p}")
     require(same_k0 >= 0.99, f"only {same_k0:.4f} of agents chose the same first candidate")
+
+
+def tie_k(fam: torch.Tensor, scan: ScanConfig) -> torch.Tensor:
+    """The step's candidate choice: argmin in tie order (agent.py decide)."""
+    order = torch.as_tensor(scan.tie_order(), device=fam.device)
+    return order[torch.argmin(fam[:, order], dim=1)]
+
+
+def run_lag(cfg, st, states0, rec) -> int:
+    """The fused lag familiarity on the main episode's library at 4 x 1024
+    real poses, against the main path's ``step.fam`` on the same poses;
+    returns the lag kernel's launch count over the phase."""
+    require(cfg.agent.max_steps >= max(LAG_POSE_STEPS), "episode shorter than the lag poses")
+    poses = [init_state(states0.xy, states0.theta) if t == 0
+             else init_state(rec.xy[:, t - 1], rec.theta[:, t - 1]) for t in LAG_POSE_STEPS]
+    cfg_f32 = dataclasses.replace(
+        cfg, sensor=dataclasses.replace(cfg.sensor, hat_dtype="float32"))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = {}
+    for hat, c in (("float32", cfg_f32), ("bfloat16", cfg)):
+        render = make_render_batch(c.sensor)
+        fused = make_lag_fam(c.sensor, c.scan)
+        step_fam = make_step_batched(c, "kernel").fam
+        same = n = 0
+        max_d, fam_ok = 0.0, True
+        for s in poses:
+            got = fused(render(st.landscape, s.xy, s.theta), st.lib)
+            want = step_fam(s, st)
+            same += int((tie_k(got, c.scan) == tie_k(want, c.scan)).sum())
+            n += got.shape[0]
+            diff = (got - want).abs()
+            max_d = max(max_d, float(diff.max()))
+            fam_ok &= bool((diff <= 1e-5 + 1e-5 * want.abs()).all())
+        out[hat] = {"same_k": same / n, "max_abs_dfam": max_d, "fam_within_1e-5": fam_ok}
+    launches = ops.launch_counts()["lag_fam"]
+    emit({"phase": "lag", "poses": len(poses) * BATCH, "pose_steps": list(LAG_POSE_STEPS),
+          **out, "lag_fam_launches": launches, "seconds": time.perf_counter() - t0})
+    require(launches > 0, "the lag kernel was not launched in the lag phase")
+    require(out["float32"]["same_k"] >= 0.999,
+            f"lag vs step at float32: only {out['float32']['same_k']:.5f} equal candidates")
+    require(out["float32"]["fam_within_1e-5"],
+            f"lag vs step at float32: familiarity off by {out['float32']['max_abs_dfam']}")
+    return launches
 
 
 def run_golden() -> None:
@@ -387,11 +526,14 @@ def main() -> int:
 
     st, states0, final, rec, counts = run_main_path(cfg, land, route)
     run_reference(cfg, st, states0, final, rec)
+    launches = {name: (n, "main") for name, n in counts.items()}
+    launches["lag_fam"] = (run_lag(cfg, st, states0, rec), "lag phase")
     run_golden()
 
     kernels = [
         {"name": name, "route": r["route"], "source": r["source"], "replaces": r["replaces"],
-         "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "launches": launches[name][0], "launches_in": launches[name][1],
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"]}
         for name, r in results.items()

@@ -25,6 +25,7 @@ SOURCES = {
     "window": "window.cu",
     "render": "render.cu",
     "min_distance": "min_distance.cu",
+    "lag_fam": "lag_fam.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -49,7 +50,8 @@ def _lib_path(name: str) -> Path:
     src = CSRC / SOURCES[name]
     h = hashlib.sha256()
     h.update(src.read_bytes())
-    h.update((CSRC / "common.cuh").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

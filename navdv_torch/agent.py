@@ -253,6 +253,19 @@ def _warn_unused_knobs(cfg: SimConfig, fam_impl: str) -> None:
         )
 
 
+def _step_from_fam(fam_of, decide):
+    """Assemble a batched step from its familiarity stage. ``step.fam``
+    exposes the pre-argmin familiarity ``fam_of(states, st) -> [B, Nh]``, so
+    a probe (another familiarity route, an analysis) reads the exact step
+    pipeline."""
+
+    def step(states: AgentState, st: EpisodeStatics):
+        return decide(states, fam_of(states, st), st)
+
+    step.fam = fam_of
+    return step
+
+
 def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None):
     """Batched step: ``(AgentState[B], EpisodeStatics) -> (AgentState[B], StepRecord[B])``.
 
@@ -309,11 +322,7 @@ def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None):
         m = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)  # [B, L]
         return torch.min(m[:, window_idx_dev], dim=2).values  # [B, Nh]
 
-    def step(states: AgentState, st: EpisodeStatics):
-        return decide(states, fam_of(states, st), st)
-
-    step.fam = fam_of
-    return step
+    return _step_from_fam(fam_of, decide)
 
 
 def make_navigate_batch(

@@ -129,12 +129,13 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize(
     "entry",
     ["train_library", "make_statics", "init_state", "make_navigate_batch",
-     "make_render_batch", "library_from_numpy"],
+     "make_render_batch", "library_from_numpy", "make_lag_fam"],
 )
 def test_entry_points_need_a_card_by_default(entry, monkeypatch, small_cfg, small_world):
     """``device=None`` means the card; without one every entry point raises
     instead of carrying on on the CPU."""
     from navdv_torch import agent, convert, sensor, training
+    from navdv_torch.ops import lag
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     land, route = small_world
@@ -148,6 +149,7 @@ def test_entry_points_need_a_card_by_default(entry, monkeypatch, small_cfg, smal
         "make_navigate_batch": lambda: agent.make_navigate_batch(cfg),
         "make_render_batch": lambda: sensor.make_render_batch(cfg.sensor),
         "library_from_numpy": lambda: convert.library_from_numpy(views),
+        "make_lag_fam": lambda: lag.make_lag_fam(cfg.sensor, cfg.scan),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

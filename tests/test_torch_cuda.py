@@ -11,10 +11,13 @@ import pytest
 import torch
 
 from navdv_torch import ops
-from navdv_torch.familiarity import zscore
+from navdv_torch.config import ScanConfig, SensorConfig
+from navdv_torch.familiarity import LibraryPack, pack_library, zscore
 from navdv_torch.ops.familiarity import min_distance_rows, min_distance_rows_plain
+from navdv_torch.ops.lag import lag_lib_min, lag_lib_min_plain, make_lag_fam
 from navdv_torch.ops.render import render_windows, render_windows_plain
 from navdv_torch.ops.window import window_gather, window_gather_plain
+from navdv_torch.sensor import scan_lag_sets
 
 pytestmark = pytest.mark.cuda
 
@@ -71,6 +74,31 @@ def test_min_distance_on_card(dev, metric):
     want = min_distance_rows_plain(*args)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_lag_fam_on_card(dev):
+    """Ragged everywhere: B = 5, L = 72 lags (two lag tiles, negative lags),
+    a library of 70 entries, P = 75 pixels, tol_bins = 1; the kernel against
+    its plain version, and the whole familiarity against the CPU's."""
+    rng = np.random.default_rng(4)
+    sensor = SensorConfig(n_radial=3, n_azimuth=25, az_upsample=3)
+    scan = ScanConfig(n_headings=70, scan_step_bins=1, tol_bins=1)
+    lags, _ = scan_lag_sets(scan)
+    assert len(lags) > 64
+    pano = torch.from_numpy(
+        rng.uniform(size=(5, sensor.n_radial, sensor.n_fine)).astype(np.float32))
+    views = rng.uniform(size=(70, sensor.n_radial, sensor.n_azimuth)).astype(np.float32)
+    lib = pack_library(torch.from_numpy(views).to(dev))
+    lags_t = torch.from_numpy(lags.astype(np.int32)).to(dev)
+    before = lag_lib_min.launches
+    got = lag_lib_min(pano.to(dev), lib.flat, lib.sq, sensor, lags_t)
+    want = lag_lib_min_plain(pano.to(dev), lib.flat, lib.sq, sensor, lags_t)
+    torch.cuda.synchronize()
+    assert lag_lib_min.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    fam_card = make_lag_fam(sensor, scan, device=dev)(pano.to(dev), lib)
+    fam_cpu = make_lag_fam(sensor, scan, device="cpu")(pano, LibraryPack(*(t.cpu() for t in lib)))
+    torch.testing.assert_close(fam_card.cpu(), fam_cpu, rtol=1e-6, atol=1e-6)
 
 
 def test_wrappers_count_launches_and_refuse_mixed_devices(dev):

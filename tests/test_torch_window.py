@@ -9,7 +9,9 @@ import pytest
 import torch
 
 from navdv_torch import ops
+from navdv_torch.config import SensorConfig
 from navdv_torch.ops.familiarity import min_distance_rows
+from navdv_torch.ops.lag import lag_lib_min
 from navdv_torch.ops.window import window_gather
 from navdv_tpu.ops.window_pallas import make_window_gather_pallas
 
@@ -47,7 +49,11 @@ def test_wrappers_take_plain_path_on_cpu_only(small_world):
     window_gather(torch.from_numpy(land), by, by, 20, 20)
     a = torch.from_numpy(np.random.default_rng(4).uniform(size=(8, 12)).astype(np.float32))
     min_distance_rows(a, a[:3], torch.zeros(3), -2.0, True)
-    assert ops.launch_counts() == {"window_gather": 0, "render": 0, "min_distance": 0}
+    sensor = SensorConfig(n_radial=2, n_azimuth=6, az_upsample=2)
+    lag_lib_min(a.reshape(4, 2, 12), a[:3], torch.zeros(3), sensor,
+                torch.arange(-2, 3, dtype=torch.int32))
+    assert ops.launch_counts() == {"window_gather": 0, "render": 0, "min_distance": 0,
+                                   "lag_fam": 0}
     meta = torch.empty(8, 12, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         min_distance_rows(meta, meta[:3], torch.empty(3, device="meta"), -2.0, True)
