@@ -6,14 +6,19 @@ Phases, one JSON line each:
 
 1. card   — the card's name and power limit (nvidia-smi);
 2. build  — every CUDA kernel of the main path, built from ``navdv_torch/csrc``
-            (one nvcc per source, all started together);
+            (one nvcc per source, all started together); ptxas must report no
+            spills for the two distance kernels, and ``cuobjdump -sass`` must
+            find fp64 tensor-core instructions (DMMA) in both;
 3. kernels — each kernel against its plain PyTorch version at the main
             path's shapes (BASELINE config 4: 1024 agents, 72x16 sensor with
             a 360-bin fine panorama, 60 lags, 50 library views), with inputs
             from ``numpy.random.default_rng(0)``; median times from CUDA events.
             The fused lag kernel is also timed against the port's unfused
             route for the same familiarity (pooled panorama -> candidate
-            views -> min-distance kernel -> window pool);
+            views -> min-distance kernel -> window pool). ``dgemm_ms`` is the
+            time of the fp64 cuBLAS product ``a64 @ b64.T`` at the
+            min-distance shape: what DMMA reaches there through cuBLAS, not a
+            computation of the kernel's function;
 4. main   — config 4 with the exact familiarity path (``spectral_cutoff=0``):
             train a 50-view library on the 512^2 blobs world, then a batched
             episode of 1024 agents with ``fam_impl="kernel"``; the launch
@@ -38,9 +43,12 @@ it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -73,7 +81,13 @@ from navdv_torch.ops.familiarity import (
     min_distance_rows,
     min_distance_rows_plain,
 )
-from navdv_torch.ops.lag import lag_grid_geometry, lag_lib_min, lag_lib_min_plain, make_lag_fam
+from navdv_torch.ops.lag import (
+    lag_grid_geometry,
+    lag_lib_min,
+    lag_lib_min_plain,
+    lag_smem_bytes,
+    make_lag_fam,
+)
 from navdv_torch.ops.render import render_windows, render_windows_plain
 from navdv_torch.ops.window import window_gather, window_gather_plain
 from navdv_torch.oracle import resample_route
@@ -97,6 +111,7 @@ PEAK_FLOP_PER_S = 67e12
 BATCH = 1024
 VIEWS = 50
 MAIN_KERNELS = ("window_gather", "render", "min_distance")
+DMMA_KERNELS = ("min_distance", "lag_fam")  # built for the fp64 tensor cores
 LAG_POSE_STEPS = (0, 16, 32, 48)  # lag phase: poses at the start and after these steps
 ROUTE_LENGTH = 40.0
 ACCURACY_BAND = 0.025  # config 4's success-rate band (bench.py ACCURACY_BAND[4])
@@ -142,6 +157,33 @@ def time_ms(fn, runs: int = 25, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def sass_dmma_counts() -> dict[str, int | None]:
+    """DMMA instructions in each distance kernel's library, from
+    ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {name: None for name in DMMA_KERNELS}
+    counts = {}
+    for name in DMMA_KERNELS:
+        sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                              capture_output=True, text=True, check=True, timeout=120).stdout
+        counts[name] = sum(1 for ln in sass.splitlines() if re.search(r"\bDMMA\b", ln))
+    return counts
+
+
+def check_build(logs: dict[str, str]) -> dict:
+    """ptxas lines of every kernel; no spills and DMMA in the distance kernels."""
+    ptxas = {name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+             for name, log in logs.items()}
+    dmma = sass_dmma_counts()
+    for name in DMMA_KERNELS:
+        spills = [int(n) for ln in ptxas[name] for n in re.findall(r"(\d+) bytes spill", ln)]
+        require(logs[name] == "cached" or (spills and not any(spills)),
+                f"{name}: ptxas reports spills or no spill line: {ptxas[name]}")
+        require(dmma[name] is None or dmma[name] > 0, f"{name}: no DMMA instruction in its SASS")
+    return {"ptxas": ptxas, "sass_dmma": dmma}
 
 
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -283,6 +325,9 @@ def check_kernels(cfg: SimConfig, dev: torch.device) -> dict[str, dict]:
             plain_ms=time_ms(lambda: min_distance_rows_plain(aa, bb, gamma, alpha, with_rowsq)),
         )
         del a64, b64, want, diff
+    a64, b64 = a.double(), b.double()
+    dgemm_ms = time_ms(lambda: a64 @ b64.T)
+    del a64, b64
     flops = 2.0 * rows_n * nl * p + 2.0 * rows_n * p  # cross term + |a|^2
     b_ms, b_by = bound(nbytes(a, b) + nl * 4 + rows_n * 4, flops)
     results["min_distance"] = dict(
@@ -290,7 +335,7 @@ def check_kernels(cfg: SimConfig, dev: torch.device) -> dict[str, dict]:
         replaces="navdv_tpu/ops/familiarity_pallas.py:103",
         max_abs_err=metrics["ssd"]["max_abs_err"], tolerance=metrics["ssd"]["tolerance"],
         ms=metrics["ssd"]["ms"], plain_ms=metrics["ssd"]["plain_ms"],
-        ncc=metrics["ncc"], bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        ncc=metrics["ncc"], dgemm_ms=dgemm_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
     results["lag_fam"] = check_lag_kernel(cfg, dev, rng)
     return results
@@ -327,6 +372,11 @@ def check_lag_kernel(cfg: SimConfig, dev: torch.device, rng) -> dict:
     require(bool((diff <= 2e-3 + 2e-4 * want.abs()).all()),
             f"lag kernel: max abs err {err} beyond rtol 2e-4 / atol 2e-3 vs float64")
     del p64, s64, c64, want, diff
+    smem = _build.load_function("lag_fam", "navdv_lag_fam_smem_bytes",
+                                [ctypes.c_int, ctypes.c_int, ctypes.c_int])(r, w, u)
+    require(smem == lag_smem_bytes(sensor),
+            f"lag kernel asks for {smem} bytes of shared memory, the wrapper's budget "
+            f"assumes {lag_smem_bytes(sensor)}")
 
     # the same familiarity f32[B, Nh], fused and through the unfused route
     fused = make_lag_fam(sensor, scan, dev)
@@ -353,7 +403,7 @@ def check_lag_kernel(cfg: SimConfig, dev: torch.device, rng) -> dict:
         plain_ms=time_ms(lambda: lag_lib_min_plain(*args)),
         fam_ms=time_ms(lambda: fused(pano, lib)),
         unfused_ms=time_ms(unfused),
-        lags=n_lags, tpu_grid_rows=nq * u,
+        lags=n_lags, tpu_grid_rows=nq * u, smem_bytes=smem,
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
 
@@ -513,10 +563,7 @@ def main() -> int:
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0)})
 
     build_s, logs = _build.build_all()
-    emit({"phase": "build", "seconds": build_s,
-          "ptxas": {name: [ln.strip() for ln in log.splitlines()
-                           if "registers" in ln or "spill" in ln]
-                    for name, log in logs.items()}})
+    emit({"phase": "build", "seconds": build_s, **check_build(logs)})
 
     cfg, land, route = slice_config()
     results = check_kernels(cfg, dev)

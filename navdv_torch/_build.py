@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -46,7 +47,19 @@ def _nvcc() -> str:
     raise RuntimeError("navdv_torch: nvcc not found; the CUDA kernels cannot be built")
 
 
-def _lib_path(name: str) -> Path:
+def source_constants(*files: str) -> dict[str, int]:
+    """The ``constexpr int NAME = <literal>;`` constants of the given
+    ``csrc`` files, so that a wrapper sizes what a kernel declares without
+    building it."""
+    found = {}
+    for f in files:
+        for name, value in re.findall(r"constexpr int (\w+) = (\d+);", (CSRC / f).read_text()):
+            found[name] = int(value)
+    return found
+
+
+def library_path(name: str) -> Path:
+    """Where kernel library ``name`` is (or will be) built."""
     src = CSRC / SOURCES[name]
     h = hashlib.sha256()
     h.update(src.read_bytes())
@@ -58,7 +71,7 @@ def _lib_path(name: str) -> Path:
 
 def _start(name: str):
     """Start nvcc for one source into a temporary file; None if built."""
-    out = _lib_path(name)
+    out = library_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -99,7 +112,7 @@ def load_function(name: str, symbol: str, argtypes: list):
     lib = _LIBS.get(name)
     if lib is None:
         _finish(name, _start(name))
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib = ctypes.CDLL(str(library_path(name)))
         lib.navdv_error_string.argtypes = [ctypes.c_int]
         lib.navdv_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib

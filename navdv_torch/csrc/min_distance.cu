@@ -10,8 +10,7 @@
 // per-row minimum in registers (min_tile.cuh, shared with lag_fam.cu). On
 // the TPU the library tiles are a sequential grid axis carrying the minimum
 // in scratch memory; here blocks run in no order, so that loop lives inside
-// the block. `a` is read from device memory once per library tile and never
-// for the norm alone.
+// the block.
 //
 // Precision: inputs are fp32; products and sums are fp64. The SSD
 // decomposition cancels: at BASELINE config 4 the view norms are ~300 while
@@ -21,41 +20,85 @@
 // sum keeps the result within ~1e-10 of the exact value of the same
 // decomposition, so the choice no longer depends on summation order.
 //
-// Ragged edges: rows past the end read zeros and are not written; library
-// entries past Nl are masked inside min_tile.cuh.
-//
 // Bound on the H100: operations. At config 4 (rows = 1024 agents x 60 lags,
-// P = 1152, Nl = 50) one call is 7.08 GFLOP, ~106 us at 67 TFLOP/s (the fp64
-// tensor-core rate, equal to the non-tensor fp32 rate), against ~85 us to
-// read the 283 MB of `a`. This first version is a shared-memory tiled
-// product on the fp64 FMA units (half that rate). With Nl = 50 one 64-entry
-// library tile covers the library, so `a` is read once; 14 of its 64
-// columns are masked work.
+// P = 1152, Nl = 50) one call is 7.08 GFLOP, 0.106 ms at the 67 TFLOP/s of
+// the fp64 tensor cores, against 0.085 ms to read the 283 MB of `a` once at
+// 3.35 TB/s. The cross term runs on those tensor cores (min_tile.cuh); the
+// stager below streams `a` with cp.async, a chunk ahead of the tensor
+// cores, so the read hides under the compute. With Nl = 50 one
+// 56-entry library tile covers the library: `a` is read once, and the norm
+// comes from the same staged pixels. Each warp holds two 16-row groups, so
+// every library fragment it loads serves two mma. What is left between
+// this kernel and its bound is feeding the tensor cores from shared memory
+// (fragment loads and widening) and the grid's last partial wave, not the
+// row stream: a deeper ring does not change its time (PERF.md).
+//
+// Ragged edges: rows past the end stage zeros and are not written; pixels
+// past P stage zeros; library entries past Nl are masked in min_tile.cuh.
+// Rows copy 16 bytes at a time when P % 4 == 0 and `a` is 16-byte aligned,
+// else 4 bytes at a time, in the same kernel.
+
+#include <cstdint>
 
 #include "common.cuh"
 #include "min_tile.cuh"
 
 namespace {
 
+using navdv::LDA;
 using navdv::THREADS;
-using navdv::TILE_R;
+using navdv::TILE_K;
 
-__global__ void __launch_bounds__(THREADS)
+constexpr int M_TILES = 2;
+constexpr int TILE_R = navdv::tile_rows<M_TILES>;
+using Smem = navdv::TileSmem<TILE_R>;
+
+// Stages a[row0 + r, k0 : k0 + TILE_K] by cp.async, zero-filled at the edges.
+struct GlobalRows {
+    const float* a;
+    int rows, p, row0;
+    bool vec;
+
+    __device__ __forceinline__ void operator()(float (*dst)[LDA], int k0) const {
+        if (vec) {
+            constexpr int PER_ROW = TILE_K / 4;
+            for (int e = threadIdx.x; e < TILE_R * PER_ROW; e += THREADS) {
+                const int r = e / PER_ROW;
+                const int k = (e % PER_ROW) * 4;
+                const int gr = row0 + r;
+                const bool ok = gr < rows && k0 + k < p;  // P % 4 == 0: all 4 or none
+                const float* src = ok ? a + static_cast<size_t>(gr) * p + k0 + k : a;
+                navdv::cp_async<16>(&dst[r][k], src, ok ? 16 : 0);
+            }
+        } else {
+            for (int e = threadIdx.x; e < TILE_R * TILE_K; e += THREADS) {
+                const int r = e / TILE_K;
+                const int k = e % TILE_K;
+                const int gr = row0 + r;
+                const bool ok = gr < rows && k0 + k < p;
+                const float* src = ok ? a + static_cast<size_t>(gr) * p + k0 + k : a;
+                navdv::cp_async<4>(&dst[r][k], src, ok ? 4 : 0);
+            }
+        }
+    }
+};
+
+__global__ void __launch_bounds__(THREADS, 2)
 min_distance_kernel(const float* __restrict__ a, const float* __restrict__ b,
                     const float* __restrict__ gamma, float* __restrict__ out, int rows,
-                    int nl, int p, double alpha, int with_rowsq) {
+                    int nl, int p, double alpha, int with_rowsq, int vec) {
+    extern __shared__ __align__(16) unsigned char smem[];
     const int row0 = blockIdx.x * TILE_R;
-    const auto load_row = [&](int r, int k) -> float {
-        const int gr = row0 + r;
-        return gr < rows ? a[static_cast<size_t>(gr) * p + k] : 0.0f;
-    };
-    double mn[4];
-    navdv::tile_min(load_row, b, gamma, nl, p, alpha, with_rowsq != 0, mn);
-    if (threadIdx.x % 16 == 0) {
+    const GlobalRows stager{a, rows, p, row0, vec != 0};
+    double mn[M_TILES][2];
+    navdv::tile_min<M_TILES>(*reinterpret_cast<Smem*>(smem), stager, b, gamma, nl, p,
+                                     alpha, with_rowsq != 0, mn);
+    if (threadIdx.x % 4 == 0) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int gr = row0 + (threadIdx.x / 16) * 4 + i;
-            if (gr < rows) out[gr] = static_cast<float>(mn[i]);
+        for (int m = 0; m < M_TILES; ++m) {
+            const int gr = row0 + ((threadIdx.x / 32) * M_TILES + m) * 16 + (threadIdx.x % 32) / 4;
+            if (gr < rows) out[gr] = static_cast<float>(mn[m][0]);
+            if (gr + 8 < rows) out[gr + 8] = static_cast<float>(mn[m][1]);
         }
     }
 }
@@ -65,10 +108,18 @@ min_distance_kernel(const float* __restrict__ a, const float* __restrict__ b,
 NAVDV_EXPORT int navdv_min_distance(const float* a, const float* b, const float* gamma,
                                     float* out, int rows, int nl, int p, double alpha,
                                     int with_rowsq, void* stream) {
+    static bool opted_in = false;
+    if (!opted_in) {  // the ring may pass the default 48 KB
+        const cudaError_t err = cudaFuncSetAttribute(
+            min_distance_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+        opted_in = true;
+    }
     if (rows > 0) {
+        const int vec = p % 4 == 0 && reinterpret_cast<std::uintptr_t>(a) % 16 == 0;
         const int blocks = (rows + TILE_R - 1) / TILE_R;
-        min_distance_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-            a, b, gamma, out, rows, nl, p, alpha, with_rowsq);
+        min_distance_kernel<<<blocks, THREADS, sizeof(Smem), static_cast<cudaStream_t>(stream)>>>(
+            a, b, gamma, out, rows, nl, p, alpha, with_rowsq, vec);
     }
     return static_cast<int>(cudaGetLastError());
 }

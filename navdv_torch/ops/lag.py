@@ -26,8 +26,23 @@ from navdv_torch.device import resolve_device
 from navdv_torch.familiarity import PAD_PENALTY, LibraryPack
 from navdv_torch.sensor import scan_lag_sets
 
-# shared memory a block can use on the H100, less the kernel's static tiles
-_MAX_POOLED_BYTES = 232_448 - 18 * 1024
+# shared memory one block can use on the H100 (static + dynamic, after opt-in)
+_BLOCK_SMEM_BYTES = 232_448
+
+
+def lag_smem_bytes(sensor: SensorConfig) -> int:
+    """Shared-memory bytes of one lag-kernel block, from the constants that
+    ``csrc/min_tile.cuh`` and ``csrc/lag_fam.cu`` declare (the layout of
+    ``lag_fam.cu``'s ``smem_bytes``): a front region that holds the raw
+    panorama row, then the tile's ring (``STAGES`` chunks of fp32 rows
+    and two of fp64 library entries, strides padded), whichever is larger;
+    then the pooled row and the per-pixel offset table."""
+    c = _build.source_constants("min_tile.cuh", "lag_fam.cu")
+    tile_r = 16 * c["TILE_WARPS"] * c["LAG_M_TILES"]
+    ld = c["TILE_K"] + c["PAD"]
+    ring = c["STAGES"] * tile_r * ld * 4 + 2 * c["TILE_V"] * ld * 8
+    ra = sensor.n_radial * sensor.n_fine
+    return max(ring, -(-ra * 4 // 16) * 16) + (ra + sensor.n_pixels) * 4
 
 
 def lag_grid_geometry(sensor: SensorConfig, scan: ScanConfig):
@@ -85,6 +100,8 @@ def _check(pano, lib_flat, gamma, sensor, lags):
     devs = {pano.device, lib_flat.device, gamma.device, lags.device}
     if len(devs) != 1:
         raise ValueError(f"lag_lib_min: tensors on different devices {devs}")
+    if lag_smem_bytes(sensor) > _BLOCK_SMEM_BYTES:
+        raise ValueError("lag_lib_min: the pooled panorama row does not fit in shared memory")
 
 
 def lag_lib_min(pano: torch.Tensor, lib_flat: torch.Tensor, gamma: torch.Tensor,
@@ -99,8 +116,6 @@ def lag_lib_min(pano: torch.Tensor, lib_flat: torch.Tensor, gamma: torch.Tensor,
         return lag_lib_min_plain(pano, lib_flat, gamma, sensor, lags)
     if dev.type != "cuda":
         raise ValueError(f"lag_lib_min: unsupported device {dev}")
-    if sensor.n_radial * sensor.n_fine * 4 > _MAX_POOLED_BYTES:
-        raise ValueError("lag_lib_min: the pooled panorama row does not fit in shared memory")
     fn = _build.load_function("lag_fam", "navdv_lag_fam", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,

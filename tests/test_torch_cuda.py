@@ -58,18 +58,28 @@ def test_render_on_card(dev, hat_bf16, atol):
     torch.testing.assert_close(got, want, atol=atol, rtol=0)
 
 
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("p", [75, 300, 1152])
+@pytest.mark.parametrize("nl", [1, 7, 8, 50, 57, 130])
+@pytest.mark.parametrize("rows", [1, 130])
 @pytest.mark.parametrize("metric", ["ssd", "ncc"])
-def test_min_distance_on_card(dev, metric):
-    """Ragged everywhere: rows not a multiple of the row tile, a library of
-    two tiles with a ragged second, pixels not a multiple of the stage."""
+def test_min_distance_on_card(dev, metric, rows, nl, p, aligned):
+    """Ragged edges of the DMMA tile: rows not a multiple of the row tile,
+    libraries under, at and over one 56-entry tile and not a multiple of the
+    8-entry n-tile, pixels not a multiple of the 16-pixel chunk. P = 75 and a
+    4-byte-misaligned ``a`` take the 4-byte staging path."""
     rng = np.random.default_rng(2)
-    rows, nl, p = 130, 70, 300
-    a = torch.from_numpy(rng.uniform(size=(rows, p)).astype(np.float32)).to(dev)
+    buf = torch.from_numpy(rng.uniform(size=rows * p + 1).astype(np.float32)).to(dev)
+    a = (buf[:-1] if aligned else buf[1:]).view(rows, p)
     b = torch.from_numpy(rng.uniform(size=(nl, p)).astype(np.float32)).to(dev)
     if metric == "ssd":
         args = (a, b, torch.sum(b * b, dim=1), -2.0, True)
     else:
         args = (zscore(a), zscore(b), torch.zeros(nl, device=dev), -1.0 / p, False)
+        if not aligned:  # zscore allocates anew: misalign its result too
+            za = torch.empty(rows * p + 1, device=dev)
+            za[1:].view(rows, p).copy_(args[0])
+            args = (za[1:].view(rows, p), *args[1:])
     got = min_distance_rows(*args)
     want = min_distance_rows_plain(*args)
     torch.cuda.synchronize()
@@ -99,6 +109,34 @@ def test_lag_fam_on_card(dev):
     fam_card = make_lag_fam(sensor, scan, device=dev)(pano.to(dev), lib)
     fam_cpu = make_lag_fam(sensor, scan, device="cpu")(pano, LibraryPack(*(t.cpu() for t in lib)))
     torch.testing.assert_close(fam_card.cpu(), fam_cpu, rtol=1e-6, atol=1e-6)
+
+
+def test_lag_kernel_equals_min_distance_kernel(dev):
+    """The two kernels share one DMMA tile and so one summation order: on the
+    same candidates, pooled in fp32 as the lag kernel pools them, their
+    minima are equal bit for bit (config-4 sensor, 60 scan lags, Nl = 50)."""
+    rng = np.random.default_rng(6)
+    sensor = SensorConfig(n_radial=16, n_azimuth=72, az_upsample=5)
+    scan = ScanConfig(n_headings=60)
+    lags, _ = scan_lag_sets(scan)
+    b = 33
+    pano = torch.from_numpy(
+        rng.uniform(size=(b, sensor.n_radial, sensor.n_fine)).astype(np.float32)).to(dev)
+    views = rng.uniform(size=(50, sensor.n_radial, sensor.n_azimuth)).astype(np.float32)
+    lib = pack_library(torch.from_numpy(views).to(dev))
+    lags_t = torch.from_numpy(lags.astype(np.int32)).to(dev)
+    u, w, a = sensor.az_upsample, sensor.n_azimuth, sensor.n_fine
+    s = pano
+    for j in range(1, u):
+        s = s + torch.roll(pano, -j, dims=2)
+    cols = torch.remainder(torch.arange(w, device=dev)[None, :] * u + lags_t.long()[:, None], a)
+    cand = (s * float(np.float32(1.0 / u))).index_select(2, cols.reshape(-1))
+    cand = cand.reshape(b, sensor.n_radial, len(lags), w).permute(0, 2, 1, 3)
+    cand = cand.reshape(b * len(lags), sensor.n_pixels).contiguous()
+    lag = lag_lib_min(pano, lib.flat, lib.sq, sensor, lags_t)
+    md = min_distance_rows(cand, lib.flat, lib.sq, -2.0, True).clamp_min(0.0)
+    torch.cuda.synchronize()
+    assert torch.equal(lag.reshape(-1), md)
 
 
 def test_wrappers_count_launches_and_refuse_mixed_devices(dev):

@@ -151,3 +151,31 @@ def test_lag_fam_rejects_ncc(small_cfg):
     cfg = config_from(small_cfg)
     with pytest.raises(ValueError, match="SSD only"):
         make_lag_fam(cfg.sensor, nt.ScanConfig(n_headings=12, metric="ncc"), device="cpu")
+
+
+def test_lag_smem_budget_follows_the_kernel(monkeypatch):
+    """The shared-memory budget comes from the tile constants in the CUDA
+    sources: config 4 fits, and a panorama whose raw and pooled rows fit
+    but not beside the offset table is refused with ValueError before
+    anything is built or launched."""
+    from navdv_torch import _build
+    from navdv_torch.ops import lag as lag_ops
+
+    c = _build.source_constants("min_tile.cuh", "lag_fam.cu")
+    ld = c["TILE_K"] + c["PAD"]
+    ring = c["STAGES"] * 16 * c["TILE_WARPS"] * c["LAG_M_TILES"] * ld * 4 + 2 * c["TILE_V"] * ld * 8
+    row, table = 16 * 360 * 4, 16 * 72 * 4  # config 4: raw or pooled row, offset table
+    need = lag_ops.lag_smem_bytes(config_from(baseline_config(4)).sensor)
+    assert need == max(ring, row) + row + table <= lag_ops._BLOCK_SMEM_BYTES
+
+    def no_build(*args, **kwargs):
+        raise AssertionError("built or launched a kernel")
+
+    monkeypatch.setattr(_build, "load_function", no_build)
+    big = nt.SensorConfig(n_radial=20, n_azimuth=288, az_upsample=5)  # pooled row 115 KB
+    assert 2 * big.n_radial * big.n_fine * 4 <= lag_ops._BLOCK_SMEM_BYTES  # raw + pooled fit,
+    assert lag_ops.lag_smem_bytes(big) > lag_ops._BLOCK_SMEM_BYTES  # not beside the table
+    pano = torch.zeros(1, big.n_radial, big.n_fine)
+    flat = torch.zeros(2, big.n_pixels)
+    with pytest.raises(ValueError, match="does not fit in shared memory"):
+        lag_lib_min(pano, flat, torch.zeros(2), big, torch.zeros(3, dtype=torch.int32))
