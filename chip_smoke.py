@@ -7,12 +7,21 @@ Phases, one JSON line each:
 1. card   — the card's name and power limit (nvidia-smi);
 2. build  — every CUDA kernel of the main path, built from ``navdv_torch/csrc``
             (one nvcc per source, all started together); ptxas must report no
-            spills for the two distance kernels, and ``cuobjdump -sass`` must
-            find fp64 tensor-core instructions (DMMA) in both;
+            spills in any of the four libraries, and ``cuobjdump -sass`` must
+            find fp64 tensor-core instructions (DMMA) in the two distance
+            kernels;
 3. kernels — each kernel against its plain PyTorch version at the main
             path's shapes (BASELINE config 4: 1024 agents, 72x16 sensor with
             a 360-bin fine panorama, 60 lags, 50 library views), with inputs
-            from ``numpy.random.default_rng(0)``; median times from CUDA events.
+            from ``numpy.random.default_rng(0)``; median times from CUDA events,
+            one call per event pair (``ms``) and, beside it, per call in a run
+            of 20 back-to-back calls (``ms_in_run``); both also for a kernel
+            that does nothing (``empty_kernel``), the floor of each timer.
+            The window gather and the render kernel (both modes) must equal
+            their plain versions bit for bit. The window gather's yardstick
+            is one PyTorch indexing call on a strided view of the landscape
+            (``unfold``), the render kernel's ``grid_sample``; the port calls
+            neither.
             The fused lag kernel is also timed against the port's unfused
             route for the same familiarity (pooled panorama -> candidate
             views -> min-distance kernel -> window pool). ``dgemm_ms`` is the
@@ -88,7 +97,7 @@ from navdv_torch.ops.lag import (
     lag_smem_bytes,
     make_lag_fam,
 )
-from navdv_torch.ops.render import render_windows, render_windows_plain
+from navdv_torch.ops.render import render_smem_bytes, render_windows, render_windows_plain
 from navdv_torch.ops.window import window_gather, window_gather_plain
 from navdv_torch.oracle import resample_route
 from navdv_torch.routes import make_route
@@ -159,6 +168,29 @@ def time_ms(fn, runs: int = 25, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def time_ms_in_run(fn, calls: int = 20, runs: int = 5) -> float:
+    """Median device time per call of ``fn()`` over ``calls`` calls enqueued
+    back to back between one CUDA-event pair (the device held by a sleep
+    kernel meanwhile): the event overhead that ``time_ms`` pays once per
+    call is spread over the run, and the gap between launches is kept."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        require(not start.query(), "timing: the device sleep ended before the run was queued")
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
 def sass_dmma_counts() -> dict[str, int | None]:
     """DMMA instructions in each distance kernel's library, from
     ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
@@ -174,14 +206,15 @@ def sass_dmma_counts() -> dict[str, int | None]:
 
 
 def check_build(logs: dict[str, str]) -> dict:
-    """ptxas lines of every kernel; no spills and DMMA in the distance kernels."""
+    """ptxas lines of every kernel; no spills anywhere, DMMA in the distance kernels."""
     ptxas = {name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
              for name, log in logs.items()}
-    dmma = sass_dmma_counts()
-    for name in DMMA_KERNELS:
+    for name in logs:
         spills = [int(n) for ln in ptxas[name] for n in re.findall(r"(\d+) bytes spill", ln)]
         require(logs[name] == "cached" or (spills and not any(spills)),
                 f"{name}: ptxas reports spills or no spill line: {ptxas[name]}")
+    dmma = sass_dmma_counts()
+    for name in DMMA_KERNELS:
         require(dmma[name] is None or dmma[name] > 0, f"{name}: no DMMA instruction in its SASS")
     return {"ptxas": ptxas, "sass_dmma": dmma}
 
@@ -239,13 +272,21 @@ def check_kernels(cfg: SimConfig, dev: torch.device) -> dict[str, dict]:
     for y, x in zip(by_np, bx_np):
         covered[y : y + wy, x : x + wx] = True
     b_ms, b_by = bound(int(covered.sum()) * 4 + nbytes(by, bx, got), 0)
+    # yardstick: one indexing kernel on the [H-wy+1, W-wx+1, wy, wx] view of
+    # every window, corners clamped beforehand
+    views = land.unfold(0, wy, 1).unfold(1, wx, 1)
+    by_c = by.long().clamp(0, land.shape[0] - wy)
+    bx_c = bx.long().clamp(0, land.shape[1] - wx)
+    require(torch.equal(views[by_c, bx_c], want), "unfold yardstick differs from the window gather")
     results["window_gather"] = dict(
         route="cuda", source="navdv_torch/csrc/window.cu",
         replaces="navdv_tpu/ops/window_pallas.py:88",
         max_abs_err=err, tolerance="exact",
         ms=time_ms(lambda: window_gather(land, by, bx, wy, wx)),
+        ms_in_run=time_ms_in_run(lambda: window_gather(land, by, bx, wy, wx)),
+        library_ms_in_run=time_ms_in_run(lambda: views[by_c, bx_c]),
         plain_ms=time_ms(lambda: window_gather_plain(land, by, bx, wy, wx)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lambda: views[by_c, bx_c]),
     )
 
     # render: windows from the gather above, poses as the main path makes them
@@ -260,15 +301,16 @@ def check_kernels(cfg: SimConfig, dev: torch.device) -> dict[str, dict]:
         np.cos(theta), np.sin(theta)], axis=1).astype(np.float32)
     fxy = torch.from_numpy(fxy_np).to(dev)
     render = {}
-    for mode, hat_bf16, tol in (("f32", False, 1e-4), ("bf16", True, 2e-3)):
+    for mode, hat_bf16 in (("f32", False), ("bf16", True)):
         got = render_windows(win, fxy, dx0, dy0, hat_bf16)
         want = render_windows_plain(win, fxy, dx0, dy0, hat_bf16)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        require(err <= tol, f"render {mode}: max abs err {err} > {tol}")
+        require(torch.equal(got, want), f"render {mode}: differs from its plain version ({err})")
         render[mode] = dict(
-            max_abs_err=err, tolerance=f"atol {tol}",
+            max_abs_err=err, tolerance="exact",
             ms=time_ms(lambda: render_windows(win, fxy, dx0, dy0, hat_bf16)),
+            ms_in_run=time_ms_in_run(lambda: render_windows(win, fxy, dx0, dy0, hat_bf16)),
             plain_ms=time_ms(lambda: render_windows_plain(win, fxy, dx0, dy0, hat_bf16)),
         )
     # yardstick: grid_sample computes the f32 function (bilinear, border clamp)
@@ -288,12 +330,17 @@ def check_kernels(cfg: SimConfig, dev: torch.device) -> dict[str, dict]:
     render["f32"]["library_max_abs_err"] = lib_err
     samples = BATCH * dx0.numel()
     b_ms, b_by = bound(nbytes(win, fxy, dx0, dy0) + samples * 4, samples * 29)
+    smem = _build.load_function("render", "navdv_render_smem_bytes", [ctypes.c_int])(wx)
+    require(smem == render_smem_bytes(wx),
+            f"render kernel asks for {smem} bytes of shared memory, the wrapper's budget "
+            f"assumes {render_smem_bytes(wx)}")
     results["render"] = dict(
         route="cuda", source="navdv_torch/csrc/render.cu",
         replaces="navdv_tpu/ops/render_pallas.py:61",
-        max_abs_err=render["bf16"]["max_abs_err"], tolerance="atol 2e-3 (bf16 mode)",
-        ms=render["bf16"]["ms"], plain_ms=render["bf16"]["plain_ms"],
-        f32_mode=render["f32"],
+        max_abs_err=render["bf16"]["max_abs_err"], tolerance="exact (both modes)",
+        ms=render["bf16"]["ms"], ms_in_run=render["bf16"]["ms_in_run"],
+        plain_ms=render["bf16"]["plain_ms"],
+        f32_mode=render["f32"], smem_bytes=smem,
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(grid_sample),
     )
 
@@ -322,6 +369,7 @@ def check_kernels(cfg: SimConfig, dev: torch.device) -> dict[str, dict]:
         metrics[metric] = dict(
             max_abs_err=err, tolerance="rtol 2e-4, atol 2e-3 vs float64",
             ms=time_ms(lambda: min_distance_rows(aa, bb, gamma, alpha, with_rowsq)),
+            ms_in_run=time_ms_in_run(lambda: min_distance_rows(aa, bb, gamma, alpha, with_rowsq)),
             plain_ms=time_ms(lambda: min_distance_rows_plain(aa, bb, gamma, alpha, with_rowsq)),
         )
         del a64, b64, want, diff
@@ -334,7 +382,8 @@ def check_kernels(cfg: SimConfig, dev: torch.device) -> dict[str, dict]:
         route="cuda", source="navdv_torch/csrc/min_distance.cu",
         replaces="navdv_tpu/ops/familiarity_pallas.py:103",
         max_abs_err=metrics["ssd"]["max_abs_err"], tolerance=metrics["ssd"]["tolerance"],
-        ms=metrics["ssd"]["ms"], plain_ms=metrics["ssd"]["plain_ms"],
+        ms=metrics["ssd"]["ms"], ms_in_run=metrics["ssd"]["ms_in_run"],
+        plain_ms=metrics["ssd"]["plain_ms"],
         ncc=metrics["ncc"], dgemm_ms=dgemm_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
     results["lag_fam"] = check_lag_kernel(cfg, dev, rng)
@@ -400,6 +449,7 @@ def check_lag_kernel(cfg: SimConfig, dev: torch.device, rng) -> dict:
         max_abs_err=err, tolerance="rtol 2e-4, atol 2e-3 vs float64",
         plain_max_abs_err=plain_err, unfused_max_abs_err=unfused_err,
         ms=time_ms(lambda: lag_lib_min(*args)),
+        ms_in_run=time_ms_in_run(lambda: lag_lib_min(*args)),
         plain_ms=time_ms(lambda: lag_lib_min_plain(*args)),
         fam_ms=time_ms(lambda: fused(pano, lib)),
         unfused_ms=time_ms(unfused),
@@ -567,7 +617,10 @@ def main() -> int:
 
     cfg, land, route = slice_config()
     results = check_kernels(cfg, dev)
-    emit({"phase": "kernels", **results})
+    # what the two timers charge any launch: a kernel that does nothing
+    empty = {"ms": time_ms(lambda: torch.cuda._sleep(0)),
+             "ms_in_run": time_ms_in_run(lambda: torch.cuda._sleep(0))}
+    emit({"phase": "kernels", **results, "empty_kernel": empty})
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 

@@ -17,10 +17,39 @@ products (the JAX bfloat16 renderer's rounding class), accumulating in f32.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from navdv_torch import _build
+
+# shared memory one block can use on the H100 (static + dynamic, after opt-in)
+_BLOCK_SMEM_BYTES = 232_448
+_MAX_GRID_Y = 65535  # sample chunks per launch (gridDim.y)
+
+
+@functools.cache
+def _constants() -> dict[str, int]:
+    """The launch constants of ``csrc/render.cu``, read once: every render
+    call checks its shapes against them."""
+    return _build.source_constants("render.cu")
+
+
+def render_smem_bytes(wsz: int) -> int:
+    """Shared-memory bytes of one render block at window size ``wsz``, from
+    the constants that ``csrc/render.cu`` declares (its ``smem_bytes``): a
+    pose (float4) and a ``wsz x wsz`` f32 window for each agent of the tile."""
+    c = _constants()
+    return c["RENDER_AGENTS"] * (16 + wsz * wsz * 4)
+
+
+def render_chunks(r: int, a: int) -> int:
+    """Blocks along the samples of one agent tile (``csrc/render.cu``
+    ``launch``): ``R*A`` samples, ``32 * RENDER_SAMPLES`` to a warp, at most
+    ``RENDER_MAX_THREADS`` threads to a block."""
+    c = _constants()
+    warps = -(-r * a // (32 * c["RENDER_SAMPLES"]))
+    return -(-warps * 32 // c["RENDER_MAX_THREADS"])
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -73,6 +102,11 @@ def _check(win, fxy, dx0, dy0):
     devs = {win.device, fxy.device, dx0.device, dy0.device}
     if len(devs) != 1:
         raise ValueError(f"render_windows: tensors on different devices {devs}")
+    if render_smem_bytes(win.shape[1]) > _BLOCK_SMEM_BYTES:
+        raise ValueError(f"render_windows: a tile of {win.shape[1]}^2 windows does not fit "
+                         "in shared memory")
+    if render_chunks(*dx0.shape) > _MAX_GRID_Y:
+        raise ValueError("render_windows: panorama too large for one launch")
 
 
 def render_windows(win: torch.Tensor, fxy: torch.Tensor, dx0: torch.Tensor,
@@ -95,8 +129,6 @@ def render_windows(win: torch.Tensor, fxy: torch.Tensor, dx0: torch.Tensor,
     dy0 = dy0.contiguous()
     b, wsz, _ = win.shape
     r, a = dx0.shape
-    if r * a > 65535 * 256:
-        raise ValueError("render_windows: panorama too large for one launch")
     out = torch.empty((b, r, a), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

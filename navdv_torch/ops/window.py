@@ -38,6 +38,8 @@ def _check(landscape, base_y, base_x, wy, wx):
     h, w = landscape.shape
     if not (0 < wy <= h and 0 < wx <= w):
         raise ValueError(f"window_gather: window {wy}x{wx} does not fit landscape {h}x{w}")
+    if h * w >= 2**31:
+        raise ValueError(f"window_gather: landscape {h}x{w} has 2^31 cells or more")
     devs = {landscape.device, base_y.device, base_x.device}
     if len(devs) != 1:
         raise ValueError(f"window_gather: tensors on different devices {devs}")

@@ -29,22 +29,23 @@ def dev():
     return torch.device("cuda")
 
 
-def test_window_gather_on_card(dev):
+@pytest.mark.parametrize("wy,wx", [(20, 22), (24, 24), (7, 9)])
+@pytest.mark.parametrize("b", [1, 37])
+def test_window_gather_on_card(dev, b, wy, wx):
+    """Agent tiles full and short, windows with wy * wx % 4 == 0 (float4
+    stores) and not (7 x 9), corners outside the landscape on every side."""
     rng = np.random.default_rng(0)
     land = torch.from_numpy(rng.uniform(size=(70, 90)).astype(np.float32)).to(dev)
-    by = torch.from_numpy(rng.integers(-10, 70, size=37).astype(np.int32)).to(dev)
-    bx = torch.from_numpy(rng.integers(-10, 90, size=37).astype(np.int32)).to(dev)
+    by = torch.from_numpy(rng.integers(-10, 70, size=b).astype(np.int32)).to(dev)
+    bx = torch.from_numpy(rng.integers(-10, 90, size=b).astype(np.int32)).to(dev)
     before = window_gather.launches
-    got = window_gather(land, by, bx, 20, 22)
+    got = window_gather(land, by, bx, wy, wx)
     torch.cuda.synchronize()
     assert window_gather.launches == before + 1
-    assert torch.equal(got, window_gather_plain(land, by, bx, 20, 22))
+    assert torch.equal(got, window_gather_plain(land, by, bx, wy, wx))
 
 
-@pytest.mark.parametrize("hat_bf16,atol", [(False, 1e-4), (True, 2e-3)])
-def test_render_on_card(dev, hat_bf16, atol):
-    rng = np.random.default_rng(1)
-    b, wsz, r, a = 5, 20, 3, 50
+def _render_inputs(rng, b, wsz, r, a, dev):
     win = torch.from_numpy(rng.uniform(size=(b, wsz, wsz)).astype(np.float32)).to(dev)
     theta = rng.uniform(-4, 4, size=b)
     fxy = np.stack([rng.uniform(-3, wsz + 3, b), rng.uniform(-3, wsz + 3, b),
@@ -52,10 +53,42 @@ def test_render_on_card(dev, hat_bf16, atol):
     fxy = torch.from_numpy(fxy).to(dev)
     dx0 = torch.from_numpy(rng.uniform(-9, 9, size=(r, a)).astype(np.float32)).to(dev)
     dy0 = torch.from_numpy(rng.uniform(-9, 9, size=(r, a)).astype(np.float32)).to(dev)
+    return win, fxy, dx0, dy0
+
+
+@pytest.mark.parametrize("wsz", [7, 20, 24])
+@pytest.mark.parametrize("r,a", [(3, 50), (16, 360)])
+@pytest.mark.parametrize("b", [1, 5, 33])
+@pytest.mark.parametrize("hat_bf16", [False, True])
+def test_render_on_card(dev, hat_bf16, b, r, a, wsz):
+    """Bit for bit the plain version: R*A % 4 != 0 (3 x 50, per-sample loads
+    and stores) and == 0 (16 x 360), W^2 % 4 != 0 (7, 4-byte staging tail),
+    B short of the agent tile (1, 5) and past it (33); poses partly outside
+    the window, so both clamps fire."""
+    win, fxy, dx0, dy0 = _render_inputs(np.random.default_rng(1), b, wsz, r, a, dev)
+    before = render_windows.launches
     got = render_windows(win, fxy, dx0, dy0, hat_bf16)
     want = render_windows_plain(win, fxy, dx0, dy0, hat_bf16)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, atol=atol, rtol=0)
+    assert render_windows.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("hat_bf16", [False, True])
+def test_render_on_card_misaligned(dev, hat_bf16):
+    """Windows and offsets that start 4 bytes past a 16-byte boundary take
+    the 4-byte staging and per-sample paths, bit for bit the plain version."""
+    win, fxy, dx0, dy0 = _render_inputs(np.random.default_rng(2), 9, 24, 16, 360, dev)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=dev)
+        buf[1:].copy_(t.reshape(-1))
+        return buf[1:].view(t.shape)
+
+    args = (shifted(win), fxy, shifted(dx0), shifted(dy0), hat_bf16)
+    got = render_windows(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, render_windows_plain(*args))
 
 
 @pytest.mark.parametrize("aligned", [True, False])

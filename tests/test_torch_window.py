@@ -57,3 +57,12 @@ def test_wrappers_take_plain_path_on_cpu_only(small_world):
     meta = torch.empty(8, 12, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         min_distance_rows(meta, meta[:3], torch.empty(3, device="meta"), -2.0, True)
+
+
+def test_window_gather_refuses_landscapes_past_32_bit_offsets():
+    """The kernel indexes the landscape with 32-bit offsets; the wrapper
+    refuses a landscape of 2^31 cells or more on every device."""
+    land = torch.zeros(1).expand(46341, 46341)  # 2,147,488,281 cells, no storage
+    by = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="2\\^31 cells"):
+        window_gather(land, by, by, 24, 24)
