@@ -1,18 +1,25 @@
-"""Where one config-4 episode of the port spends its time on the card.
+"""Where one episode of the port spends its time on the card.
 
-    python3 chip_profile.py
+    python3 chip_profile.py [--fam-impl kernel|fft|roll] [--config 2|4]
 
-Trains the config-4 library as ``chip_smoke.py`` does, warms the episode up,
-times three plain episodes (host clock around work that ends in a
-synchronize), then runs one more under ``torch.profiler`` and prints one
-JSON line: the episode's wall time, the device time summed by kernel name,
-and the device's idle share (1 - summed kernel time / profiled wall time;
-one stream, so kernels never overlap). Exits non-zero without a card or when
-the profiler records no device activity.
+The cells are those ``chip_smoke.py`` drives: config 4 (50 views, 1024
+agents) and config 2 (500 views, 512 agents), as shipped except that the
+exact paths clear ``spectral_cutoff``. ``--config`` defaults to the cell
+each path ships for: 4 for ``kernel`` (the default) and ``fft``, 2 for
+``roll``. Trains
+the library, prepares its per-library constants once (as
+``NavigationSimulator`` does), warms the episode up, times three plain
+episodes (host clock around work that ends in a synchronize), then runs one
+more under ``torch.profiler`` and prints one JSON line: the episode's wall
+time, the device time summed by kernel name, and the device's idle share
+(1 - summed kernel time / profiled wall time; one stream, so kernels never
+overlap). Exits non-zero without a card or when the profiler records no
+device activity.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import json
 import sys
@@ -22,36 +29,51 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import BATCH, card_line, slice_config
+from chip_smoke import BATCH, CONFIG2_BATCH, CONFIG2_VIEWS, VIEWS, bench_config, card_line, slice_config
 from navdv_torch.agent import init_state, make_navigate_batch, make_statics
 from navdv_torch.metrics import success_rate
 from navdv_torch.training import train_library
 from navdv_torch.trials import make_trials
 
 
+def cell(fam_impl: str, config: int):
+    """(cfg, landscape, route, batch) of ``config``'s cell for ``fam_impl``."""
+    if config == 4:
+        cfg, land, route = bench_config(4, VIEWS) if fam_impl == "fft" else slice_config()
+        return cfg, land, route, BATCH
+    return (*bench_config(2, CONFIG2_VIEWS), CONFIG2_BATCH)
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--fam-impl", choices=("kernel", "fft", "roll"), default="kernel")
+    parser.add_argument("--config", type=int, choices=(2, 4), default=None)
+    args = parser.parse_args()
+    config = args.config or (2 if args.fam_impl == "roll" else 4)
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    cfg, land, route = slice_config()
+    cfg, land, route, batch = cell(args.fam_impl, config)
     lib = train_library(land, route, cfg)
     st = make_statics(land, lib, route)
-    starts, thetas = make_trials(route, cfg, BATCH, seed=0)
+    starts, thetas = make_trials(route, cfg, batch, seed=0)
     states0 = init_state(starts, thetas)
-    run = make_navigate_batch(cfg, fam_impl="kernel")
-    rate = float(success_rate(run(states0, st)[0]))  # warm-up
+    run = make_navigate_batch(cfg, fam_impl=args.fam_impl)
+    aux = None if run.prepare is None else run.prepare(st)
+    rate = float(success_rate(run(states0, st, aux)[0]))  # warm-up
 
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        final, _ = run(states0, st)
+        final, _ = run(states0, st, aux)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
 
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(states0, st)
+        run(states0, st, aux)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
 
@@ -67,11 +89,14 @@ def main() -> int:
     steps = cfg.agent.max_steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     print(json.dumps({
-        "phase": "profile", "card": card_line(), "batch": BATCH, "max_steps": steps,
+        "phase": "profile", "card": card_line(), "fam_impl": args.fam_impl, "config": config,
+        "library_views": int(lib.views.shape[0]), "batch": batch, "max_steps": steps,
         "success_rate": rate, "episode_s": walls, "episode_s_median": float(np.median(walls)),
-        "agent_steps_per_s": BATCH * steps / float(np.median(walls)),
+        "agent_steps_per_s": batch * steps / float(np.median(walls)),
         "profiled_episode_s": prof_wall, "device_busy_ms": busy_ms,
+        "device_ms_per_step": busy_ms / steps,
         "device_idle_share": 1.0 - busy_ms / (prof_wall * 1e3),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "kernels": [{"name": name[:80], "ms": ms, "count": n, "ms_per_step": ms / steps}
                     for name, (ms, n) in top[:15]],
     }), flush=True)

@@ -42,12 +42,34 @@ Phases, one JSON line each:
             ``hat_dtype="bfloat16"`` the agreement is reported only (the JAX
             lag prep pools without the bf16 box filter); the lag kernel's
             launch count over the phase must be > 0;
-7. golden — the port's own training plus a one-agent episode on the small
+7. spectral — config 4 as shipped (``spectral_cutoff=72``) through
+            ``NavigationSimulator`` with its default ``fam_impl="auto"``, which
+            must resolve to ``"fft"``: the main phase's 1024 trials, success
+            within 0.025 of the main phase's; the episode must launch the
+            window and render kernels and neither distance kernel. At
+            ``spectral_cutoff=0``, on the lag phase's 4 x 1024 poses, >= 99.9%
+            of tie-ordered candidates must equal the kernel path's
+            ``step.fam`` (the shipped cutoff's agreement is reported only);
+8. roll   — config 2 as shipped (500 views, 120 headings, 512 trials)
+            through ``NavigationSimulator``, whose ``"auto"`` must resolve to
+            ``"roll"``, against the kernel path on the same trials: success
+            within 0.010 (``bench.py`` ACCURACY_BAND[2]), >= 99.9% of agents
+            with the same first candidate, window and render launched, no
+            distance kernel;
+9. roll_knobs — one config-2 library minimum on the roll phase's poses:
+            ``fixed_point_bits=8`` equals a float64 evaluation of the
+            quantized SSD to rtol 2e-7, ``roll_rank=16`` is within 4e-3 of the
+            largest |l|^2 of the dense roll path; one episode with each knob,
+            its success rate reported only;
+10. checkpoint — the spectral phase's library saved and loaded into a fresh
+            simulator, whose episode must give the same final states;
+11. golden — the port's own training plus a one-agent episode on the small
             parity world against ``tests/golden_oracle_small.npz``.
 
-Then the card line, the kernels line and, last, ``{"ok": true, "device": ...}``.
-Any failed check raises and the script exits non-zero. Without a CUDA device
-it exits 2 and prints no result.
+Every phase line carries its ``seconds``. Then the card line, the kernels
+line and, last, ``{"ok": true, "device": ...}``. Any failed check raises and
+the script exits non-zero. Without a CUDA device it exits 2 and prints no
+result.
 """
 
 from __future__ import annotations
@@ -60,6 +82,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -83,6 +106,7 @@ from navdv_torch.config import (
 )
 from navdv_torch.device import resolve_device
 from navdv_torch.familiarity import pack_library, zscore
+from navdv_torch.familiarity_roll import make_lib_min_roll
 from navdv_torch.landscape import make_landscape
 from navdv_torch.metrics import episode_metrics, success_rate
 from navdv_torch.ops.familiarity import (
@@ -109,6 +133,7 @@ from navdv_torch.sensor import (
     scan_lag_sets,
     window_geometry,
 )
+from navdv_torch.simulator import NavigationSimulator
 from navdv_torch.training import train_library
 from navdv_torch.trials import make_trials
 
@@ -119,11 +144,16 @@ PEAK_FLOP_PER_S = 67e12
 
 BATCH = 1024
 VIEWS = 50
+CONFIG2_BATCH = 512  # bench.py SPEC_BATCH[2]
+CONFIG2_VIEWS = 500  # bench.py SPEC_VIEWS[2]
 MAIN_KERNELS = ("window_gather", "render", "min_distance")
+RENDER_KERNELS = ("window_gather", "render")
+DISTANCE_KERNELS = ("min_distance", "lag_fam")
 DMMA_KERNELS = ("min_distance", "lag_fam")  # built for the fp64 tensor cores
 LAG_POSE_STEPS = (0, 16, 32, 48)  # lag phase: poses at the start and after these steps
 ROUTE_LENGTH = 40.0
 ACCURACY_BAND = 0.025  # config 4's success-rate band (bench.py ACCURACY_BAND[4])
+ACCURACY_BAND_2 = 0.010  # config 2's (bench.py ACCURACY_BAND[2])
 SLEEP_CYCLES = 50_000_000  # ~25 ms at the H100's clock: outlasts enqueuing one run
 GOLDEN = Path(__file__).resolve().parent / "tests" / "golden_oracle_small.npz"
 
@@ -145,50 +175,48 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, runs: int = 25, warmup: int = 3) -> float:
-    """Median device time of ``fn()`` in ms, one CUDA-event pair per run.
-
-    Before each run a sleep kernel holds the device while the host enqueues
-    the run, so its kernels execute back to back and the events measure
-    device time, not the host's time to prepare the launches."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
+def held_ms(enqueue) -> float:
+    """Device time in ms of the work ``enqueue()`` queues. A sleep kernel
+    holds the device while the host enqueues, so the work runs back to back
+    and the events measure the device, not the host's time to prepare the
+    launches. A run whose sleep ended before the host finished enqueuing (a
+    slow or shared host) is repeated with a sleep twice as long."""
+    cycles = SLEEP_CYCLES
+    for _ in range(4):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-        torch.cuda._sleep(SLEEP_CYCLES)
+        torch.cuda._sleep(cycles)
         start.record()
-        fn()
+        enqueue()
         end.record()
-        require(not start.query(), "timing: the device sleep ended before the run was queued")
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+        if not start.query():
+            torch.cuda.synchronize()
+            return start.elapsed_time(end)
+        cycles *= 2
+    raise AssertionError("timing: the device sleep ended before the run was queued, 4 times")
+
+
+def time_ms(fn, runs: int = 25, warmup: int = 3) -> float:
+    """Median device time of ``fn()`` in ms, one CUDA-event pair per run."""
+    for _ in range(warmup):
+        fn()
+    return float(np.median([held_ms(fn) for _ in range(runs)]))
 
 
 def time_ms_in_run(fn, calls: int = 20, runs: int = 5) -> float:
     """Median device time per call of ``fn()`` over ``calls`` calls enqueued
-    back to back between one CUDA-event pair (the device held by a sleep
-    kernel meanwhile): the event overhead that ``time_ms`` pays once per
-    call is spread over the run, and the gap between launches is kept."""
+    back to back between one CUDA-event pair: the event overhead that
+    ``time_ms`` pays once per call is spread over the run, and the gap
+    between launches is kept."""
     for _ in range(3):
         fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
+
+    def run():
         for _ in range(calls):
             fn()
-        end.record()
-        require(not start.query(), "timing: the device sleep ended before the run was queued")
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return float(np.median(times))
+
+    return float(np.median([held_ms(run) / calls for _ in range(runs)]))
 
 
 def sass_dmma_counts() -> dict[str, int | None]:
@@ -230,23 +258,29 @@ def nbytes(*ts: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def slice_config() -> tuple[SimConfig, np.ndarray, np.ndarray]:
-    """BASELINE config 4 on the bench world: 512^2 blobs (seed 7, 150
-    features), sine route of length 40, 50 stored views, a step budget of
-    1.3x the route's arc. ``spectral_cutoff`` belongs to the JAX spectral
-    path and is cleared for the exact path."""
-    cfg = baseline_config(4)
+def bench_config(n: int, views: int) -> tuple[SimConfig, np.ndarray, np.ndarray]:
+    """BASELINE config ``n`` as shipped, on the bench world of ``bench.py``
+    ``_setup``: 512^2 blobs (seed 7, 150 features), sine route of length 40,
+    ``views`` stored views, a step budget of 1.3x the route's arc."""
+    cfg = baseline_config(n)
     land = make_landscape("blobs", size=(512, 512), seed=7, n_features=150)
     route = make_route("sine", size=(512, 512), margin=60.0, length=ROUTE_LENGTH,
                        amplitude=ROUTE_LENGTH / 8.0)
     arc = float(np.hypot(*np.diff(route, axis=0).T).sum())
     cfg = dataclasses.replace(
         cfg,
-        scan=dataclasses.replace(cfg.scan, spectral_cutoff=0),
-        capture_spacing=arc / (VIEWS - 0.5),
+        capture_spacing=arc / (views - 0.5),
         agent=dataclasses.replace(cfg.agent, max_steps=int(arc / cfg.agent.step_size * 1.3)),
     )
     return cfg, land, route
+
+
+def slice_config() -> tuple[SimConfig, np.ndarray, np.ndarray]:
+    """The main path: config 4 with 50 stored views on the bench world, with
+    ``spectral_cutoff`` (which belongs to the spectral path) cleared for the
+    exact path."""
+    cfg, land, route = bench_config(4, VIEWS)
+    return dataclasses.replace(cfg, scan=dataclasses.replace(cfg.scan, spectral_cutoff=0)), land, route
 
 
 def check_kernels(cfg: SimConfig, dev: torch.device) -> dict[str, dict]:
@@ -461,6 +495,7 @@ def check_lag_kernel(cfg: SimConfig, dev: torch.device, rng) -> dict:
 def run_main_path(cfg, land, route):
     """Training + one batched episode through the kernels; returns what the
     reference phase compares against."""
+    t_phase = time.perf_counter()
     starts, thetas = make_trials(route, cfg, BATCH, seed=0)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -500,6 +535,7 @@ def run_main_path(cfg, land, route):
         "train_and_episode_s": wall, "episode_s": episode_s,
         "agent_steps_per_s": BATCH * t_max / episode_s, "launches": counts,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "seconds": time.perf_counter() - t_phase,
     })
     return st, states0, final, rec, counts
 
@@ -517,6 +553,7 @@ def run_reference(cfg, st, states0, final, rec) -> None:
         "phase": "reference", "fam_impl": "plain", "success_rate": rate_p,
         "kernel_success_rate": rate_k, "same_first_k": same_k0,
         "episode_s": episode_s, "agent_steps_per_s": BATCH * cfg.agent.max_steps / episode_s,
+        "seconds": time.perf_counter() - t0,
     })
     require(abs(rate_k - rate_p) <= ACCURACY_BAND,
             f"success rates differ: kernel {rate_k} vs plain {rate_p}")
@@ -529,13 +566,17 @@ def tie_k(fam: torch.Tensor, scan: ScanConfig) -> torch.Tensor:
     return order[torch.argmin(fam[:, order], dim=1)]
 
 
-def run_lag(cfg, st, states0, rec) -> int:
+def episode_poses(cfg, states0, rec) -> list:
+    """The main episode's agents at the start and after LAG_POSE_STEPS."""
+    require(cfg.agent.max_steps >= max(LAG_POSE_STEPS), "episode shorter than the lag poses")
+    return [init_state(states0.xy, states0.theta) if t == 0
+            else init_state(rec.xy[:, t - 1], rec.theta[:, t - 1]) for t in LAG_POSE_STEPS]
+
+
+def run_lag(cfg, st, poses) -> int:
     """The fused lag familiarity on the main episode's library at 4 x 1024
     real poses, against the main path's ``step.fam`` on the same poses;
     returns the lag kernel's launch count over the phase."""
-    require(cfg.agent.max_steps >= max(LAG_POSE_STEPS), "episode shorter than the lag poses")
-    poses = [init_state(states0.xy, states0.theta) if t == 0
-             else init_state(rec.xy[:, t - 1], rec.theta[:, t - 1]) for t in LAG_POSE_STEPS]
     cfg_f32 = dataclasses.replace(
         cfg, sensor=dataclasses.replace(cfg.sensor, hat_dtype="float32"))
     torch.cuda.synchronize()
@@ -568,6 +609,205 @@ def run_lag(cfg, st, states0, rec) -> int:
     return launches
 
 
+def phase_memory_start() -> int:
+    """Zero the peak-memory counter; returns the bytes the earlier phases
+    still hold, which a phase's ``peak_mem_gb`` leaves out."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def timed_navigate(sim: NavigationSimulator, **kw):
+    """One counted episode (launch counts zeroed just before it and read just
+    after), then the same episode again, timed; both must agree."""
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    res = sim.navigate(**kw)  # waits for the episode
+    counts = ops.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = sim.navigate(**kw)
+    episode_s = time.perf_counter() - t0
+    require(again.success_rate == res.success_rate, "a repeated episode gave another success rate")
+    return res, counts, episode_s
+
+
+def require_render_only(counts: dict, phase: str) -> None:
+    """The extraction-free paths render through the window and render
+    kernels and launch no distance kernel."""
+    for name in RENDER_KERNELS:
+        require(counts[name] > 0, f"{phase}: kernel {name} was not launched")
+    for name in DISTANCE_KERNELS:
+        require(counts[name] == 0, f"{phase}: kernel {name} was launched ({counts[name]})")
+
+
+def compare_fam(fam_a, fam_b, poses, st, scan) -> dict:
+    """Two familiarity functions on the same poses: the share of equal
+    tie-ordered candidates and the largest familiarity difference."""
+    same = n = 0
+    max_d = 0.0
+    for s in poses:
+        a, b = fam_a(s, st), fam_b(s, st)
+        same += int((tie_k(a, scan) == tie_k(b, scan)).sum())
+        n += a.shape[0]
+        max_d = max(max_d, float((a - b).abs().max()))
+    return {"same_k": same / n, "max_abs_dfam": max_d}
+
+
+def run_spectral(cfg_main, st, poses, kernel_rate: float) -> NavigationSimulator:
+    """Config 4 as shipped through the simulator's default "auto" (the JAX
+    package's "fft" with spectral_cutoff=72) on the main phase's trials,
+    and the fft path at cutoff 0 against the kernel path's familiarity."""
+    t_phase = time.perf_counter()
+    cfg, land, route = bench_config(4, VIEWS)
+    require(cfg.scan.spectral_cutoff == 72, "config 4 ships spectral_cutoff=72")
+    base = phase_memory_start()
+    sim = NavigationSimulator(cfg, land, route)
+    require(sim.fam_impl == "fft", f"config 4's auto resolved to {sim.fam_impl!r}")
+    sim.train()
+    res, counts, episode_s = timed_navigate(sim, n_trials=BATCH, seed=0)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    rate = res.success_rate
+    require(res.record.k.shape == (BATCH, cfg.agent.max_steps), "spectral record shape")
+    require(bool(torch.isfinite(res.record.fam[~res.record.done]).all()), "non-finite familiarity")
+
+    kernel_fam = make_step_batched(cfg_main, "kernel").fam
+    agree = {}
+    for cutoff in (0, cfg.scan.spectral_cutoff):
+        c = dataclasses.replace(cfg_main, scan=dataclasses.replace(cfg_main.scan,
+                                                                   spectral_cutoff=cutoff))
+        step = make_step_batched(c, "fft")
+        aux = step.lib_prepare(st)
+        agree[f"cutoff_{cutoff}"] = compare_fam(lambda s, st_: step.fam(s, st_, aux),
+                                                kernel_fam, poses, st, cfg.scan)
+    emit({
+        "phase": "spectral", "fam_impl": sim.fam_impl, "spectral_cutoff": cfg.scan.spectral_cutoff,
+        "batch": BATCH, "max_steps": cfg.agent.max_steps, "success_rate": rate,
+        "kernel_success_rate": kernel_rate, "episode_s": episode_s,
+        "agent_steps_per_s": BATCH * cfg.agent.max_steps / episode_s, "launches": counts,
+        "peak_mem_gb": peak, "vs_kernel_step_fam": agree, "poses": len(poses) * BATCH,
+        "seconds": time.perf_counter() - t_phase,
+    })
+    require(abs(rate - kernel_rate) <= ACCURACY_BAND,
+            f"spectral: success {rate} vs the kernel path's {kernel_rate}")
+    require_render_only(counts, "spectral")
+    require(agree["cutoff_0"]["same_k"] >= 0.999,
+            f"fft at cutoff 0: only {agree['cutoff_0']['same_k']:.5f} equal candidates")
+    return sim
+
+
+def run_roll():
+    """Config 2 as shipped through the simulator's default "auto" (the JAX
+    package's "roll"), against the kernel path on the same trials. Returns
+    what the knob phase reuses."""
+    t_phase = time.perf_counter()
+    cfg, land, route = bench_config(2, CONFIG2_VIEWS)
+    base = phase_memory_start()
+    sim = NavigationSimulator(cfg, land, route)
+    require(sim.fam_impl == "roll", f"config 2's auto resolved to {sim.fam_impl!r}")
+    sim.train()
+    require(sim.library.views.shape[0] == CONFIG2_VIEWS, f"{sim.library.views.shape[0]} views")
+    res, counts, episode_s = timed_navigate(sim, n_trials=CONFIG2_BATCH, seed=0)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    st = make_statics(land, sim.library, route)
+    starts, thetas = make_trials(route, cfg, CONFIG2_BATCH, seed=0)
+    states0 = init_state(starts, thetas)
+    run_k = make_navigate_batch(cfg, "kernel")
+    final_k, rec_k = run_k(states0, st)
+    rate_k = float(success_rate(final_k))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rate_k2 = float(success_rate(run_k(states0, st)[0]))
+    kernel_episode_s = time.perf_counter() - t0
+    require(rate_k2 == rate_k, "a repeated kernel episode gave another success rate")
+    same_k0 = float((res.record.k[:, 0] == rec_k.k[:, 0]).float().mean())
+    t_max = cfg.agent.max_steps
+    emit({
+        "phase": "roll", "fam_impl": sim.fam_impl, "batch": CONFIG2_BATCH, "max_steps": t_max,
+        "library_views": CONFIG2_VIEWS, "lags": len(scan_lag_sets(cfg.scan)[0]),
+        "success_rate": res.success_rate, "kernel_success_rate": rate_k, "same_first_k": same_k0,
+        "episode_s": episode_s, "agent_steps_per_s": CONFIG2_BATCH * t_max / episode_s,
+        "kernel_episode_s": kernel_episode_s,
+        "kernel_agent_steps_per_s": CONFIG2_BATCH * t_max / kernel_episode_s,
+        "launches": counts, "peak_mem_gb": peak, "seconds": time.perf_counter() - t_phase,
+    })
+    require(abs(res.success_rate - rate_k) <= ACCURACY_BAND_2,
+            f"roll: success {res.success_rate} vs the kernel path's {rate_k}")
+    require(same_k0 >= 0.999, f"roll: only {same_k0:.5f} of agents chose the kernel's first candidate")
+    require_render_only(counts, "roll")
+    return cfg, st, states0
+
+
+def run_roll_knobs(cfg, st, states0) -> None:
+    """The roll path's two opt-in knobs at config 2 on the roll phase's
+    poses: one library minimum each against its reference, then one episode
+    each (success reported only: the JAX package documents recall loss on
+    the blobs world)."""
+    t_phase = time.perf_counter()
+    sensor = cfg.sensor
+    lags, _ = scan_lag_sets(cfg.scan)
+    s = make_pooled_panorama(sensor)(make_render_batch(sensor)(st.landscape, states0.xy,
+                                                               states0.theta))
+    lib = st.lib
+    dense = make_lib_min_roll(sensor, cfg.scan, lags)(s, lib, None, None)
+    out = {}
+
+    # fixed point: the exact SSD between the 1/255-quantized images
+    fixed_scan = dataclasses.replace(cfg.scan, fixed_point_bits=8)
+    got = make_lib_min_roll(sensor, fixed_scan, lags)(s, lib, None, None).double()
+    cand = make_views_from_pooled(sensor, lags)(s)
+    qc = torch.round(cand * 255.0).clamp(0.0, 255.0).double()  # the quantizer's f32 rounding
+    del cand
+    ql = torch.round(lib.flat * 255.0).clamp(0.0, 255.0).double()
+    d64 = (qc * qc).sum(2, keepdim=True) + (ql * ql).sum(1) - 2.0 * (qc @ ql.T)  # integers, exact
+    want = d64.amin(dim=2) / 255.0**2
+    del qc, d64
+    rel = float(((got - want).abs() / want.abs().clamp_min(1e-300)).max())
+    out["fixed_point_bits_8"] = {"max_rel_err_vs_float64": rel}
+    require(bool(((got - want).abs() <= 2e-7 * want.abs()).all()),
+            f"fixed point: {rel} beyond rtol 2e-7 of the float64 quantized SSD")
+
+    # low rank: the bf16 residual's bound around the dense roll path
+    rank_scan = dataclasses.replace(cfg.scan, roll_rank=16)
+    got = make_lib_min_roll(sensor, rank_scan, lags)(s, lib, None, None)
+    scale = float(lib.sq.max())
+    diff = (got - dense).abs()
+    out["roll_rank_16"] = {"max_abs_err_vs_dense": float(diff.max()), "scale": scale}
+    require(bool((diff <= 4e-3 * scale + 4e-3 * dense.abs()).all()),
+            f"roll_rank=16: {float(diff.max())} beyond 4e-3 of {scale}")
+
+    for name, scan in (("fixed_point_bits_8", fixed_scan), ("roll_rank_16", rank_scan)):
+        run = make_navigate_batch(dataclasses.replace(cfg, scan=scan), "roll")
+        aux = run.prepare(st)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, _ = run(states0, st, aux)
+        out[name]["success_rate"] = float(success_rate(final))
+        out[name]["episode_s"] = time.perf_counter() - t0
+    emit({"phase": "roll_knobs", "poses": int(s.shape[0]), **out,
+          "seconds": time.perf_counter() - t_phase})
+
+
+def run_checkpoint(sim: NavigationSimulator) -> None:
+    """Save the spectral phase's library, load it into a fresh simulator and
+    navigate the same trials: the same final states."""
+    t_phase = time.perf_counter()
+    want = sim.navigate(n_trials=BATCH, seed=0).final_state
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "library.npz")
+        sim.save_library(path)
+        size = Path(path).stat().st_size
+        fresh = NavigationSimulator(sim.cfg, sim.landscape, sim.route).load_library(path)
+    for a, b in zip(sim.library, fresh.library):
+        require(torch.equal(a, b), "checkpoint: the loaded library differs")
+    got = fresh.navigate(n_trials=BATCH, seed=0).final_state
+    equal = all(torch.equal(a, b) for a, b in zip(want, got))
+    emit({"phase": "checkpoint", "bytes": size, "final_states_equal": equal,
+          "seconds": time.perf_counter() - t_phase})
+    require(equal, "checkpoint: the loaded library navigates to other final states")
+
+
 def run_golden() -> None:
     """The small parity world of the test suite: the port's own library and
     a one-agent episode on the card against the frozen float64 fixture, at
@@ -580,6 +820,7 @@ def run_golden() -> None:
     )
     land = make_landscape("blobs", size=(128, 128), seed=3, n_features=60)
     route = make_route("line", size=(128, 128), margin=32.0, length=40.0)
+    t0 = time.perf_counter()
     with np.load(GOLDEN) as f:
         gold = {k: f[k] for k in f.files}
     lib = train_library(land, route, cfg)
@@ -594,7 +835,8 @@ def run_golden() -> None:
     n_steps = int((~rec.done[0]).sum())
     emit({"phase": "golden", "library_max_abs_err": lib_err, "k": k.tolist(),
           "golden_k": gold["k"][:6].tolist(), "xy_max_abs_err": xy_err,
-          "steps": n_steps, "golden_steps": len(gold["xy"]), "status": int(final.status[0])})
+          "steps": n_steps, "golden_steps": len(gold["xy"]), "status": int(final.status[0]),
+          "seconds": time.perf_counter() - t0})
     require(np.array_equal(k, gold["k"][:6]), "golden: first 6 candidates differ")
     require(xy_err <= 1e-4, f"golden: positions off by {xy_err}")
     require(fam_ok, "golden: familiarity beyond atol 5e-4 / rtol 1e-3")
@@ -616,18 +858,28 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s, **check_build(logs)})
 
     cfg, land, route = slice_config()
+    t0 = time.perf_counter()
     results = check_kernels(cfg, dev)
     # what the two timers charge any launch: a kernel that does nothing
     empty = {"ms": time_ms(lambda: torch.cuda._sleep(0)),
              "ms_in_run": time_ms_in_run(lambda: torch.cuda._sleep(0))}
-    emit({"phase": "kernels", **results, "empty_kernel": empty})
+    emit({"phase": "kernels", **results, "empty_kernel": empty,
+          "seconds": time.perf_counter() - t0})
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
     st, states0, final, rec, counts = run_main_path(cfg, land, route)
     run_reference(cfg, st, states0, final, rec)
     launches = {name: (n, "main") for name, n in counts.items()}
-    launches["lag_fam"] = (run_lag(cfg, st, states0, rec), "lag phase")
+    poses = episode_poses(cfg, states0, rec)
+    launches["lag_fam"] = (run_lag(cfg, st, poses), "lag phase")
+    sim = run_spectral(cfg, st, poses, float(success_rate(final)))
+    del st, states0, final, rec, poses
+    torch.cuda.empty_cache()
+    run_roll_knobs(*run_roll())
+    run_checkpoint(sim)
+    del sim
+    torch.cuda.empty_cache()
     run_golden()
 
     kernels = [

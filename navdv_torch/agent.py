@@ -1,12 +1,21 @@
 """Agent state, batched step and episode loop.
 
-The batched step renders one panorama per agent, extracts the candidate
-views at the deduplicated scan lags, takes the per-lag library minimum
-(min-distance kernel or plain path), RIDF-min-pools it over each heading's
-tolerance window, and decides: tie-ordered argmin, kinematics, stop rules.
-The episode is a Python loop over ``max_steps`` with done-masking; nothing
-in it waits for the device unless ``early_exit`` asks whether every agent
-is done.
+The batched step renders one panorama per agent, pools it, and scores the
+deduplicated scan lags against the library by one of four paths:
+
+- ``"kernel"``: candidate views extracted at every lag, then the
+  min-distance kernel (counterpart of the JAX ``"pallas"`` path);
+- ``"plain"``: the same in plain PyTorch (the JAX ``"jnp"`` path);
+- ``"roll"``: the rolled-library product, no candidate tensor
+  (:mod:`navdv_torch.familiarity_roll`);
+- ``"fft"``: the spectral correlation, no candidate tensor
+  (:mod:`navdv_torch.familiarity_fft`);
+
+or ``"auto"``, which resolves as the JAX package's ``choose_fam_impl`` does.
+It then RIDF-min-pools the per-lag minimum over each heading's tolerance
+window and decides: tie-ordered argmin, kinematics, stop rules. The episode
+is a Python loop over ``max_steps`` with done-masking; nothing in it waits
+for the device unless ``early_exit`` asks whether every agent is done.
 
 Status codes: 0 = running/budget, 1 = reached, 2 = diverged, 3 = off-landscape.
 """
@@ -20,9 +29,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from navdv_torch.config import SimConfig
+from navdv_torch.config import SimConfig, choose_fam_impl
 from navdv_torch.device import as_tensor, resolve_device
 from navdv_torch.familiarity import NCC_EPS, PAD_PENALTY, LibraryPack
+from navdv_torch.familiarity_fft import make_lib_min_fft
+from navdv_torch.familiarity_roll import make_lib_min_roll
 from navdv_torch.ops.familiarity import make_lib_min_kernel
 from navdv_torch.sensor import (
     make_lag_stats,
@@ -45,19 +56,21 @@ FAM_CHUNK_ELEMS = 2 << 20
 # JAX familiarity implementations that the port does not have yet, with the
 # ROADMAP item that ports each
 _NOT_PORTED = {
-    "fft": "ROADMAP A.10 (spectral familiarity)",
-    "roll": "ROADMAP A.9 (rolled-library familiarity)",
     "conv": "ROADMAP A.12 (conv familiarity)",
     "infomax": "ROADMAP A.13 (infomax learned memory)",
-    "auto": "ROADMAP A.10 (auto resolves to the fft/roll paths)",
 }
-# the port's names for the two JAX paths it has
+# the port's names for the two extract-then-score JAX paths
 _PORT_NAMES = {"pallas": "kernel", "jnp": "plain"}
-# sensor and scan fields the port's paths read
+FAM_IMPLS = ("kernel", "plain", "fft", "roll")
+# sensor and scan fields every path of the port reads
 _HONOURED_FIELDS = {
     "n_radial", "n_azimuth", "az_upsample", "r_min", "r_max", "hat_dtype",
     "render_mode", "n_headings", "scan_step_bins", "metric", "tol_bins",
 }
+# knobs that one familiarity path reads, as in the JAX package
+_IMPL_KNOBS = {"roll_rank": "roll", "fixed_point_bits": "roll", "spectral_cutoff": "fft"}
+# JAX matmul pass counts: the port's distances are fp64 on every path (C.1)
+_PRECISION_KNOBS = ("matmul_precision", "fft_product_precision")
 
 
 class AgentState(NamedTuple):
@@ -193,23 +206,12 @@ def _make_lib_min(cfg: SimConfig, fam_impl: str, device):
     lag-stat route rounds |c|^2 apart from the candidates the cross term
     sees by about the gap between the best headings.
     """
-    if fam_impl in _NOT_PORTED:
-        raise NotImplementedError(
-            f"fam_impl={fam_impl!r} is not ported yet: {_NOT_PORTED[fam_impl]}"
-        )
-    if fam_impl in _PORT_NAMES:
-        raise ValueError(
-            f"fam_impl={fam_impl!r} is the JAX name; the port calls it "
-            f"{_PORT_NAMES[fam_impl]!r}"
-        )
     metric = cfg.scan.metric
     if metric not in ("ssd", "ncc"):
         raise ValueError(f"unknown familiarity metric {metric!r}")
     if fam_impl == "kernel":
         inner = make_lib_min_kernel(cfg.sensor, cfg.scan)
         return lambda cand, lib, lag_sum, lag_sq: inner(cand, lib)
-    if fam_impl != "plain":
-        raise ValueError(f"unknown fam_impl {fam_impl!r}")
 
     p = float(cfg.sensor.n_pixels)
     if metric == "ssd":
@@ -235,61 +237,127 @@ def _make_lib_min(cfg: SimConfig, fam_impl: str, device):
     return lib_min
 
 
-def _warn_unused_knobs(cfg: SimConfig, fam_impl: str) -> None:
-    """Knobs of JAX-only paths (and the JAX matmul pass count, which the
-    port's fp64 distances ignore) have no effect here; say so rather than
-    letting a set knob read as free."""
-    unused = [
-        f"{type(part).__name__}.{f.name}"
-        for part in (cfg.sensor, cfg.scan)
-        for f in dataclasses.fields(part)
-        if f.name not in _HONOURED_FIELDS and getattr(part, f.name) != f.default
-    ]
-    if unused:
-        warnings.warn(
-            f"{', '.join(unused)} have no effect with fam_impl={fam_impl!r}; "
-            f"they apply only to JAX-only paths",
-            stacklevel=3,
+def resolve_fam_impl(cfg: SimConfig, fam_impl: str) -> str:
+    """The port's familiarity path for ``fam_impl``: ``"auto"`` resolves by
+    the JAX package's rule (``config.choose_fam_impl``), its ``"jnp"``
+    becoming ``"kernel"`` (the min-distance kernel computes that stage, and
+    takes its plain version on CPU tensors). JAX names of paths the port has
+    under another name raise ValueError; paths not ported raise
+    NotImplementedError naming their ROADMAP item."""
+    if fam_impl == "auto":
+        fam_impl = choose_fam_impl(cfg)
+        return "kernel" if fam_impl == "jnp" else fam_impl
+    if fam_impl in _NOT_PORTED:
+        raise NotImplementedError(
+            f"fam_impl={fam_impl!r} is not ported yet: {_NOT_PORTED[fam_impl]}"
         )
+    if fam_impl in _PORT_NAMES:
+        raise ValueError(
+            f"fam_impl={fam_impl!r} is the JAX name; the port calls it "
+            f"{_PORT_NAMES[fam_impl]!r}"
+        )
+    if fam_impl not in FAM_IMPLS:
+        raise ValueError(f"unknown fam_impl {fam_impl!r}")
+    return fam_impl
+
+
+def _warn_unused_knobs(cfg: SimConfig, fam_impl: str) -> None:
+    """A knob set away from its default that ``fam_impl`` does not read
+    warns, rather than letting it read as free: the impl-specific knobs of
+    the JAX package (``roll_rank``/``fixed_point_bits`` outside ``"roll"``,
+    ``spectral_cutoff`` outside ``"fft"``), the JAX matmul pass counts (the
+    port's distances are fp64), and the knobs of paths not ported yet."""
+    unused = []
+    for part in (cfg.sensor, cfg.scan):
+        for f in dataclasses.fields(part):
+            if f.name in _HONOURED_FIELDS or getattr(part, f.name) == f.default:
+                continue
+            if _IMPL_KNOBS.get(f.name) == fam_impl:
+                continue
+            if f.name in _IMPL_KNOBS:
+                why = f"it applies only to fam_impl={_IMPL_KNOBS[f.name]!r}"
+            elif f.name in _PRECISION_KNOBS:
+                why = "the port's distances are fp64 (ROADMAP C.1)"
+            else:
+                why = "it belongs to a JAX path the port does not have yet"
+            unused.append((f"{type(part).__name__}.{f.name}", why))
+    if unused:
+        names = ", ".join(n for n, _ in unused)
+        verb = "has" if len(unused) == 1 else "have"
+        reasons = "; ".join(f"{n}: {why}" for n, why in unused)
+        warnings.warn(f"{names} {verb} no effect with fam_impl={fam_impl!r} ({reasons})",
+                      stacklevel=3)
 
 
 def _step_from_fam(fam_of, decide):
     """Assemble a batched step from its familiarity stage. ``step.fam``
-    exposes the pre-argmin familiarity ``fam_of(states, st) -> [B, Nh]``, so
-    a probe (another familiarity route, an analysis) reads the exact step
-    pipeline."""
+    exposes the pre-argmin familiarity ``fam_of(states, st, aux=None) ->
+    [B, Nh]``, so a probe (another familiarity route, an analysis) reads the
+    exact step pipeline."""
 
-    def step(states: AgentState, st: EpisodeStatics):
-        return decide(states, fam_of(states, st), st)
+    def step(states: AgentState, st: EpisodeStatics, aux=None):
+        return decide(states, fam_of(states, st, aux), st)
 
     step.fam = fam_of
     return step
 
 
 def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None):
-    """Batched step: ``(AgentState[B], EpisodeStatics) -> (AgentState[B], StepRecord[B])``.
+    """Batched step: ``step(AgentState[B], EpisodeStatics, aux=None) ->
+    (AgentState[B], StepRecord[B])``.
 
-    Pipeline: render one panorama per agent -> pooled panorama -> candidate
-    views at the deduplicated scan lags -> per-lag library minimum M[B, L]
-    -> RIDF min-pool via a static window gather -> argmin/kinematics. When
+    Pipeline: render one panorama per agent -> pooled panorama -> per-lag
+    library minimum M[B, L] at the deduplicated scan lags -> RIDF min-pool
+    via a static window gather -> argmin/kinematics.
+
+    ``"kernel"``/``"plain"`` extract the candidate views first; when
     (L x P) per agent exceeds FAM_CHUNK_ELEMS, lags are extracted and scored
-    in chunks so only [B, chunk, P] is ever materialized. ``step.fam``
-    exposes the pre-argmin familiarity ``fam_of(states, st) -> [B, Nh]``.
+    in chunks so only [B, chunk, P] is ever materialized. They have no
+    prepare stage (``step.lib_prepare`` is None) and ignore ``aux``.
+    ``"roll"``/``"fft"`` score the pooled panorama directly; their
+    per-library constants (pre-rolled library, library spectra) come from
+    ``step.lib_prepare(st)``, passed as ``aux`` (built per call when None).
+    ``step.fam`` exposes the pre-argmin familiarity
+    ``fam_of(states, st, aux=None) -> [B, Nh]``.
     """
     dev = resolve_device(device)
+    fam_impl = resolve_fam_impl(cfg, fam_impl)
     if cfg.sensor.render_mode not in ("full", "sector"):
         raise ValueError(f"unknown render_mode {cfg.sensor.render_mode!r}")
     # the sector renderer serves the spectral path only; like the JAX
     # package, every other path renders "full" (numerically equivalent)
-    lib_min = _make_lib_min(cfg, fam_impl, dev)
+    if cfg.sensor.render_mode == "sector" and fam_impl == "fft":
+        raise NotImplementedError(
+            "render_mode='sector' with fam_impl='fft' runs the sector renderer, "
+            "which is not ported yet: ROADMAP A.11 (sector renderer)"
+        )
     _warn_unused_knobs(cfg, fam_impl)
     decide = _make_decide(cfg, dev)
     render_b = make_render_batch(cfg.sensor, dev)
     pooled = make_pooled_panorama(cfg.sensor, dev)
     lags, window_idx = scan_lag_sets(cfg.scan)
-    plain_ncc = fam_impl == "plain" and cfg.scan.metric == "ncc"
-    lag_stats = make_lag_stats(cfg.sensor, lags, dev) if plain_ncc else None
+    window_idx_dev = torch.as_tensor(window_idx.astype(np.int64), device=dev)  # [Nh, 2t+1]
+    ncc = cfg.scan.metric == "ncc"
 
+    if fam_impl in ("fft", "roll"):
+        make = make_lib_min_fft if fam_impl == "fft" else make_lib_min_roll
+        lib_min_s = make(cfg.sensor, cfg.scan, lags, dev)
+        stats = make_lag_stats(cfg.sensor, lags, dev) if ncc else None
+
+        def fam_of(states: AgentState, st: EpisodeStatics, aux=None) -> torch.Tensor:
+            s = pooled(render_b(st.landscape, states.xy, states.theta))  # [B, R, A]
+            lag_sum = lag_sq = None
+            if stats is not None:
+                lag_sum, lag_sq = stats(s.double())  # [B, L] each
+            m = lib_min_s(s, st.lib, lag_sum, lag_sq, aux)  # [B, L]
+            return torch.min(m[:, window_idx_dev], dim=2).values  # [B, Nh]
+
+        step = _step_from_fam(fam_of, decide)
+        step.lib_prepare = lambda st: lib_min_s.prepare(st.lib)
+        return step
+
+    lib_min = _make_lib_min(cfg, fam_impl, dev)
+    lag_stats = make_lag_stats(cfg.sensor, lags, dev) if fam_impl == "plain" and ncc else None
     p = cfg.sensor.n_pixels
     n_lags = len(lags)
     chunk = max(1, FAM_CHUNK_ELEMS // p)
@@ -302,9 +370,8 @@ def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None):
         (lo, hi, make_views_from_pooled(cfg.sensor, lags[lo:hi], dev))
         for lo, hi in chunk_bounds
     ]
-    window_idx_dev = torch.as_tensor(window_idx.astype(np.int64), device=dev)  # [Nh, 2t+1]
 
-    def fam_of(states: AgentState, st: EpisodeStatics) -> torch.Tensor:
+    def fam_of(states: AgentState, st: EpisodeStatics, aux=None) -> torch.Tensor:
         pano = render_b(st.landscape, states.xy, states.theta)  # [B, R, A]
         s = pooled(pano)  # [B, R, A]
         lag_sum = lag_sq = None
@@ -322,30 +389,41 @@ def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None):
         m = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)  # [B, L]
         return torch.min(m[:, window_idx_dev], dim=2).values  # [B, Nh]
 
-    return _step_from_fam(fam_of, decide)
+    step = _step_from_fam(fam_of, decide)
+    step.lib_prepare = None
+    return step
 
 
 def make_navigate_batch(
     cfg: SimConfig, fam_impl: str = "kernel", early_exit: bool = False, device=None
 ):
-    """Batched trials: ``run(states0, statics) -> (final[B], StepRecord[B, T])``.
+    """Batched trials: ``run(states0, statics, aux=None) -> (final[B],
+    StepRecord[B, T])``.
 
     The full loop runs ``max_steps`` steps with done-masking and never waits
     for the device. ``early_exit`` stops once every agent is done (one
     device sync per step); its records are preallocated with ``done=True``
     and zeros so the untouched tail stays masked, giving the same result as
     the full loop.
+
+    Callers running many episodes against one library build its constants
+    once with ``run.prepare(statics)`` and pass them as ``aux``; otherwise
+    each call prepares them once. ``run.prepare`` is None for paths with no
+    prepare stage (``"kernel"``, ``"plain"``).
     """
     dev = resolve_device(device)
     step = make_step_batched(cfg, fam_impl, dev)
     t_max = cfg.agent.max_steps
+    lib_prepare = step.lib_prepare
 
-    def run(states0: AgentState, st: EpisodeStatics):
+    def run(states0: AgentState, st: EpisodeStatics, aux=None):
+        if aux is None and lib_prepare is not None:
+            aux = lib_prepare(st)
         states = states0
         if not early_exit:
             recs = []
             for _ in range(t_max):
-                states, rec = step(states, st)
+                states, rec = step(states, st, aux)
                 recs.append(rec)
             return states, StepRecord(*(torch.stack(f, dim=1) for f in zip(*recs)))
 
@@ -361,9 +439,10 @@ def make_navigate_batch(
         for t in range(t_max):
             if bool(states.done.all()):
                 break
-            states, rec = step(states, st)
+            states, rec = step(states, st, aux)
             for dst, src in zip(buf, rec):
                 dst[:, t] = src
         return states, buf
 
+    run.prepare = lib_prepare
     return run

@@ -3,10 +3,10 @@
 A copy of the JAX package's configuration: field names and defaults are
 identical, so a config built in one package carries to the other field by
 field (``convert.config_from``). Comments are trimmed to what the port
-honours; fields that select JAX-only implementations (the sector renderer,
-the spectral and rolled familiarity paths, infomax) are kept so that the
-dataclasses stay equal; the port raises where such a path is asked for and
-warns where such a knob is set.
+honours; fields that select implementations the port does not have yet
+(the sector renderer, conv, infomax) are kept so that the dataclasses stay
+equal; the port raises where such a path is asked for and warns where such
+a knob is set.
 """
 
 from __future__ import annotations
@@ -65,7 +65,10 @@ class ScanConfig:
     # it: its distances sum fp32 products in fp64, because the SSD
     # decomposition cancels (ops/familiarity.py).
     matmul_precision: str = "high"
-    # knobs of JAX-only familiarity paths (fft / roll / infomax)
+    # fft_product_precision: a JAX pass count too, ignored likewise.
+    # spectral_cutoff: "fft" only, the first bins of the azimuth DFT kept
+    # (0 = all, exact). fixed_point_bits / roll_rank: "roll" + SSD only
+    # (8-bit exact SSD; low-rank split with a bf16 residual product).
     fft_product_precision: str = "inherit"
     fused_dft_precision: str = "off"
     spectral_cutoff: int = 0
@@ -114,8 +117,8 @@ def baseline_config(n: int) -> SimConfig:
 
     Configs 1-4 run the bfloat16 weight renderer. Config 4 is config 1's
     workload over 1024 agents (the batch is set by the caller).
-    ``spectral_cutoff`` applies to the JAX spectral path only; the port's
-    exact path runs with it cleared.
+    ``spectral_cutoff`` applies to the spectral path only ("fft"); the
+    exact paths run with it cleared.
     """
     if n == 1:  # ~50 stored 72x16 views, 60-heading SSD scan
         return SimConfig(
@@ -152,9 +155,10 @@ def baseline_config(n: int) -> SimConfig:
 
 
 def baseline_fam_impl(n: int) -> str:
-    """The JAX package's familiarity implementation per benchmark config.
-    The port implements the exact extract-then-score path only ("kernel" /
-    "plain"); these names are kept so the two packages resolve alike."""
+    """The JAX package's familiarity implementation per benchmark config,
+    in its names. The port runs each of them, under the same names, except
+    config 3's (the spectral path through the sector renderer, ROADMAP
+    A.11); ``agent.resolve_fam_impl`` maps "auto"."""
     return {1: "fft", 2: "roll", 3: "fft", 4: "fft", 5: "auto"}[n]
 
 

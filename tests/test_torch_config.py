@@ -129,12 +129,13 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize(
     "entry",
     ["train_library", "make_statics", "init_state", "make_navigate_batch",
-     "make_render_batch", "library_from_numpy", "make_lag_fam"],
+     "make_render_batch", "library_from_numpy", "make_lag_fam", "NavigationSimulator",
+     "load_library"],
 )
 def test_entry_points_need_a_card_by_default(entry, monkeypatch, small_cfg, small_world):
     """``device=None`` means the card; without one every entry point raises
     instead of carrying on on the CPU."""
-    from navdv_torch import agent, convert, sensor, training
+    from navdv_torch import agent, checkpoint, convert, sensor, simulator, training
     from navdv_torch.ops import lag
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -150,6 +151,8 @@ def test_entry_points_need_a_card_by_default(entry, monkeypatch, small_cfg, smal
         "make_render_batch": lambda: sensor.make_render_batch(cfg.sensor),
         "library_from_numpy": lambda: convert.library_from_numpy(views),
         "make_lag_fam": lambda: lag.make_lag_fam(cfg.sensor, cfg.scan),
+        "NavigationSimulator": lambda: simulator.NavigationSimulator(cfg, land, route),
+        "load_library": lambda: checkpoint.load_library("never-read.npz"),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

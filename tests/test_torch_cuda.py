@@ -180,3 +180,43 @@ def test_wrappers_count_launches_and_refuse_mixed_devices(dev):
     assert ops.launch_counts()["min_distance"] == 1
     with pytest.raises(ValueError, match="different devices"):
         min_distance_rows(a, a[:3].cpu(), torch.zeros(3), -2.0, True)
+
+
+@pytest.mark.parametrize("b", [1, 7])
+@pytest.mark.parametrize(
+    "impl,scan_kw",
+    [("roll", {}), ("roll", {"fixed_point_bits": 8}), ("roll", {"roll_rank": 4}),
+     ("fft", {}), ("fft", {"spectral_cutoff": 9})],
+    ids=["roll", "roll_fixed_point", "roll_rank", "fft", "fft_cutoff"],
+)
+def test_extraction_free_paths_on_card(dev, impl, scan_kw, b):
+    """The rolled-library and spectral paths on the card against the CPU at
+    ragged shapes: P = 75 and |Q|*Nl = 7 * 25 not multiples of 8 and
+    B*u <= 16 rows (the int8 product's padding), negative lags. Fixed point
+    equals the CPU bit for bit; the fp64 paths up to summation order; the
+    low-rank split within its bf16 residual's bound."""
+    from navdv_torch.familiarity_fft import make_lib_min_fft
+    from navdv_torch.familiarity_roll import make_lib_min_roll
+    from navdv_torch.sensor import make_lag_stats
+
+    rng = np.random.default_rng(7)
+    sensor = SensorConfig(n_radial=3, n_azimuth=25, az_upsample=3)
+    scan = ScanConfig(n_headings=12, scan_step_bins=1, tol_bins=1, **scan_kw)
+    lags, _ = scan_lag_sets(scan)
+    s = torch.from_numpy(rng.uniform(size=(b, 3, sensor.n_fine)).astype(np.float32))
+    lib = pack_library(torch.from_numpy(rng.uniform(size=(7, 3, 25)).astype(np.float32)))
+    make = make_lib_min_fft if impl == "fft" else make_lib_min_roll
+    out = {}
+    for d in ("cpu", dev):
+        s_d, lib_d = s.to(d), LibraryPack(*(t.to(d) for t in lib))
+        stats = make_lag_stats(sensor, lags, d)(s_d.double())
+        out[str(d)] = make(sensor, scan, lags, d)(s_d, lib_d, *stats).cpu()
+    torch.cuda.synchronize()
+    got, want = out[str(dev)], out["cpu"]
+    if scan_kw.get("fixed_point_bits"):
+        assert torch.equal(got, want)
+    elif scan_kw.get("roll_rank"):
+        scale = float(lib.sq.max())
+        torch.testing.assert_close(got, want, rtol=4e-3, atol=4e-3 * scale)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-9, atol=1e-9)

@@ -117,18 +117,27 @@ def test_early_exit_matches_full_loop(small_cfg, small_world):
 
 @pytest.mark.parametrize(
     "fam_impl,error,match",
-    [("fft", NotImplementedError, "A.10"), ("roll", NotImplementedError, "A.9"),
+    [("fft-sector", NotImplementedError, "A.11"), ("auto-sector", NotImplementedError, "A.11"),
      ("conv", NotImplementedError, "A.12"), ("infomax", NotImplementedError, "A.13"),
-     ("auto", NotImplementedError, "A.10"), ("jnp", ValueError, "'plain'"),
+     ("roll-l1", ValueError, "unknown familiarity metric"), ("jnp", ValueError, "'plain'"),
      ("pallas", ValueError, "'kernel'"), ("bogus", ValueError, "unknown fam_impl")],
 )
 def test_unported_fam_impls_raise(small_cfg, fam_impl, error, match):
+    """Paths not ported raise naming their ROADMAP item (the spectral path
+    through the sector renderer: A.11), JAX names raise naming the port's."""
+    cfg = config_from(small_cfg)
+    fam_impl, _, variant = fam_impl.partition("-")
+    if variant == "sector":  # with a 576-px sensor, "auto" resolves to "fft" too
+        cfg = dataclasses.replace(cfg, sensor=dataclasses.replace(
+            cfg.sensor, n_radial=8, n_azimuth=72, render_mode="sector"))
+    elif variant:
+        cfg = dataclasses.replace(cfg, scan=dataclasses.replace(cfg.scan, metric=variant))
     with pytest.raises(error, match=match):
-        make_step_batched(config_from(small_cfg), fam_impl, device="cpu")
+        make_step_batched(cfg, fam_impl, device="cpu")
 
 
 def test_knobs_of_unported_paths_warn(small_cfg):
-    """A set knob that only JAX-only paths read warns; the slice's own
+    """A set knob that the chosen path does not read warns; the slice's own
     settings do not."""
     cfg = config_from(small_cfg)
     with warnings.catch_warnings():
