@@ -1,12 +1,13 @@
 """Where one episode of the port spends its time on the card.
 
-    python3 chip_profile.py [--fam-impl kernel|fft|roll] [--config 2|4]
+    python3 chip_profile.py [--fam-impl kernel|fft|roll] [--config 2|3|4]
 
 The cells are those ``chip_smoke.py`` drives: config 4 (50 views, 1024
-agents) and config 2 (500 views, 512 agents), as shipped except that the
-exact paths clear ``spectral_cutoff``. ``--config`` defaults to the cell
-each path ships for: 4 for ``kernel`` (the default) and ``fft``, 2 for
-``roll``. Trains
+agents), config 2 (500 views, 512 agents) and config 3 (50 views, 256
+agents, the fused sector front end on ``fft``), as shipped except that the
+exact paths clear the knobs only ``fft`` reads (``chip_smoke.exact_cfg``).
+``--config`` defaults to the cell each path ships for: 4 for ``kernel``
+(the default) and ``fft``, 2 for ``roll``. Trains
 the library, prepares its per-library constants once (as
 ``NavigationSimulator`` does), warms the episode up, times three plain
 episodes (host clock around work that ends in a synchronize), then runs one
@@ -29,7 +30,17 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import BATCH, CONFIG2_BATCH, CONFIG2_VIEWS, VIEWS, bench_config, card_line, slice_config
+from chip_smoke import (
+    BATCH,
+    CONFIG2_BATCH,
+    CONFIG2_VIEWS,
+    SECTOR_BATCH,
+    VIEWS,
+    bench_config,
+    card_line,
+    exact_cfg,
+    slice_config,
+)
 from navdv_torch.agent import init_state, make_navigate_batch, make_statics
 from navdv_torch.metrics import success_rate
 from navdv_torch.training import train_library
@@ -41,13 +52,16 @@ def cell(fam_impl: str, config: int):
     if config == 4:
         cfg, land, route = bench_config(4, VIEWS) if fam_impl == "fft" else slice_config()
         return cfg, land, route, BATCH
+    if config == 3:
+        cfg, land, route = bench_config(3, VIEWS)
+        return (cfg if fam_impl == "fft" else exact_cfg(cfg)), land, route, SECTOR_BATCH
     return (*bench_config(2, CONFIG2_VIEWS), CONFIG2_BATCH)
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--fam-impl", choices=("kernel", "fft", "roll"), default="kernel")
-    parser.add_argument("--config", type=int, choices=(2, 4), default=None)
+    parser.add_argument("--config", type=int, choices=(2, 3, 4), default=None)
     args = parser.parse_args()
     config = args.config or (2 if args.fam_impl == "roll" else 4)
     if not torch.cuda.is_available():

@@ -50,21 +50,43 @@ Phases, one JSON line each:
             ``spectral_cutoff=0``, on the lag phase's 4 x 1024 poses, >= 99.9%
             of tie-ordered candidates must equal the kernel path's
             ``step.fam`` (the shipped cutoff's agreement is reported only);
-8. roll   — config 2 as shipped (500 views, 120 headings, 512 trials)
+8. sector — config 3 as shipped (64x360 sensor, NCC, tol_bins 3, the fused
+            sector front end, ``bench_config(3, 50)``, 256 agents): on 256
+            trial poses the sector render, unrolled, within 2e-4 (f32) and
+            3e-2 (bf16) of the full render, and the render kernel timed at
+            config 3's shapes; ``NavigationSimulator``'s "auto" must resolve
+            to ``"fft"`` and take the fused branch, its episode must launch
+            window and render and no distance kernel, and its success must be
+            within 0.010 (``bench.py`` ACCURACY_BAND[3]) of the kernel path's
+            on the same trials. At ``spectral_cutoff=0`` and f32, on the
+            kernel episode's poses at steps 0/16/32/48, >= 99.9% of
+            tie-ordered candidates of the fused step must equal the kernel
+            path's and the unfused step's (shipped cutoff and bf16 reported
+            only). At config 4's shapes (u = 5) the spectral minimum with
+            ``roll_k`` equals that of the unrolled panorama to rtol 1e-9 or
+            one f32 rounding step;
+9. roll   — config 2 as shipped (500 views, 120 headings, 512 trials)
             through ``NavigationSimulator``, whose ``"auto"`` must resolve to
             ``"roll"``, against the kernel path on the same trials: success
             within 0.010 (``bench.py`` ACCURACY_BAND[2]), >= 99.9% of agents
             with the same first candidate, window and render launched, no
             distance kernel;
-9. roll_knobs — one config-2 library minimum on the roll phase's poses:
+10. roll_knobs — one config-2 library minimum on the roll phase's poses:
             ``fixed_point_bits=8`` equals a float64 evaluation of the
             quantized SSD to rtol 2e-7, ``roll_rank=16`` is within 4e-3 of the
             largest |l|^2 of the dense roll path; one episode with each knob,
             its success rate reported only;
-10. checkpoint — the spectral phase's library saved and loaded into a fresh
+11. checkpoint — the spectral phase's library saved and loaded into a fresh
             simulator, whose episode must give the same final states;
-11. golden — the port's own training plus a one-agent episode on the small
-            parity world against ``tests/golden_oracle_small.npz``.
+12. sweep — the default ``SweepSpec`` (config 5: 8 cells, 256 trials, 256
+            steps, early exit) on the bench world with a 128-trial recall
+            check: each cell runs the path "auto" resolves to (``kernel`` at
+            36x8, ``fft`` at 72x16), each fft cell's recall within 0.025 of
+            the kernel path's on its subset; a second run resumes all 8 cells
+            from disk and launches no kernel; ``summary.json`` lists 8 cells;
+13. golden — the port's own training plus a one-agent episode on the small
+            parity world against ``tests/golden_oracle_small.npz``; the
+            one-agent ``navigate()`` must give the batched episode's record.
 
 Every phase line carries its ``seconds``. Then the card line, the kernels
 line and, last, ``{"ok": true, "device": ...}``. Any failed check raises and
@@ -96,6 +118,8 @@ from navdv_torch.agent import (
     make_navigate_batch,
     make_statics,
     make_step_batched,
+    navigate,
+    resolve_fam_impl,
 )
 from navdv_torch.config import (
     AgentConfig,
@@ -106,6 +130,7 @@ from navdv_torch.config import (
 )
 from navdv_torch.device import resolve_device
 from navdv_torch.familiarity import pack_library, zscore
+from navdv_torch.familiarity_fft import make_lib_min_fft
 from navdv_torch.familiarity_roll import make_lib_min_roll
 from navdv_torch.landscape import make_landscape
 from navdv_torch.metrics import episode_metrics, success_rate
@@ -128,12 +153,15 @@ from navdv_torch.routes import make_route
 from navdv_torch.sensor import (
     make_pooled_panorama,
     make_render_batch,
+    make_render_batch_rolled,
     make_views_from_pooled,
     polar_offsets,
     scan_lag_sets,
+    unroll_panorama,
     window_geometry,
 )
 from navdv_torch.simulator import NavigationSimulator
+from navdv_torch.sweep import SweepSpec, run_sweep
 from navdv_torch.training import train_library
 from navdv_torch.trials import make_trials
 
@@ -154,6 +182,12 @@ LAG_POSE_STEPS = (0, 16, 32, 48)  # lag phase: poses at the start and after thes
 ROUTE_LENGTH = 40.0
 ACCURACY_BAND = 0.025  # config 4's success-rate band (bench.py ACCURACY_BAND[4])
 ACCURACY_BAND_2 = 0.010  # config 2's (bench.py ACCURACY_BAND[2])
+ACCURACY_BAND_3 = 0.010  # config 3's (bench.py ACCURACY_BAND[3])
+SECTOR_BATCH = 256  # bench.py SPEC_BATCH[3]
+# the sector render unrolled vs the full render: fp rounding of the rotation
+# at f32, the bf16 weights' pixel noise at bf16 (bench.py's sector gate)
+SECTOR_RENDER_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+SWEEP_RECALL_TRIALS = 128
 SLEEP_CYCLES = 50_000_000  # ~25 ms at the H100's clock: outlasts enqueuing one run
 GOLDEN = Path(__file__).resolve().parent / "tests" / "golden_oracle_small.npz"
 
@@ -323,60 +357,7 @@ def check_kernels(cfg: SimConfig, dev: torch.device) -> dict[str, dict]:
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lambda: views[by_c, bx_c]),
     )
 
-    # render: windows from the gather above, poses as the main path makes them
-    win = got
-    dx0_np, dy0_np = polar_offsets(sensor)
-    dx0 = torch.from_numpy(dx0_np).to(dev)
-    dy0 = torch.from_numpy(dy0_np).to(dev)
-    half = wx // 2
-    theta = rng.uniform(-math.pi, math.pi, size=BATCH)
-    fxy_np = np.stack([
-        rng.uniform(half, half + 1, size=BATCH), rng.uniform(half, half + 1, size=BATCH),
-        np.cos(theta), np.sin(theta)], axis=1).astype(np.float32)
-    fxy = torch.from_numpy(fxy_np).to(dev)
-    render = {}
-    for mode, hat_bf16 in (("f32", False), ("bf16", True)):
-        got = render_windows(win, fxy, dx0, dy0, hat_bf16)
-        want = render_windows_plain(win, fxy, dx0, dy0, hat_bf16)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        require(torch.equal(got, want), f"render {mode}: differs from its plain version ({err})")
-        render[mode] = dict(
-            max_abs_err=err, tolerance="exact",
-            ms=time_ms(lambda: render_windows(win, fxy, dx0, dy0, hat_bf16)),
-            ms_in_run=time_ms_in_run(lambda: render_windows(win, fxy, dx0, dy0, hat_bf16)),
-            plain_ms=time_ms(lambda: render_windows_plain(win, fxy, dx0, dy0, hat_bf16)),
-        )
-    # yardstick: grid_sample computes the f32 function (bilinear, border clamp)
-    fx, fy, c, s = (fxy[:, i, None, None] for i in range(4))
-    xs = ((fx + c * dx0) - s * dy0).clamp(0.0, wx - 1.0)
-    ys = ((fy + s * dx0) + c * dy0).clamp(0.0, wy - 1.0)
-    grid = torch.stack([xs / (wx - 1) * 2 - 1, ys / (wy - 1) * 2 - 1], dim=-1)
-    win4 = win[:, None]
-
-    def grid_sample():
-        return torch.nn.functional.grid_sample(
-            win4, grid, mode="bilinear", padding_mode="border", align_corners=True)
-
-    lib_err = float((grid_sample()[:, 0] - render_windows_plain(win, fxy, dx0, dy0, False))
-                    .abs().max())
-    require(lib_err <= 1e-4, f"grid_sample yardstick: max abs err {lib_err} > 1e-4")
-    render["f32"]["library_max_abs_err"] = lib_err
-    samples = BATCH * dx0.numel()
-    b_ms, b_by = bound(nbytes(win, fxy, dx0, dy0) + samples * 4, samples * 29)
-    smem = _build.load_function("render", "navdv_render_smem_bytes", [ctypes.c_int])(wx)
-    require(smem == render_smem_bytes(wx),
-            f"render kernel asks for {smem} bytes of shared memory, the wrapper's budget "
-            f"assumes {render_smem_bytes(wx)}")
-    results["render"] = dict(
-        route="cuda", source="navdv_torch/csrc/render.cu",
-        replaces="navdv_tpu/ops/render_pallas.py:61",
-        max_abs_err=render["bf16"]["max_abs_err"], tolerance="exact (both modes)",
-        ms=render["bf16"]["ms"], ms_in_run=render["bf16"]["ms_in_run"],
-        plain_ms=render["bf16"]["plain_ms"],
-        f32_mode=render["f32"], smem_bytes=smem,
-        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(grid_sample),
-    )
+    results["render"] = check_render(got, sensor, dev, rng)
 
     # min distance + running min: both metrics against float64 on the card
     n_lags = 60
@@ -422,6 +403,65 @@ def check_kernels(cfg: SimConfig, dev: torch.device) -> dict[str, dict]:
     )
     results["lag_fam"] = check_lag_kernel(cfg, dev, rng)
     return results
+
+
+def check_render(win: torch.Tensor, sensor: SensorConfig, dev: torch.device, rng) -> dict:
+    """The render kernel against its plain version (bit for bit, both
+    modes) on windows ``win`` f32[B, W, W], at poses as the renderers make
+    them, timed beside ``grid_sample``."""
+    batch, wx = win.shape[0], win.shape[2]
+    dx0_np, dy0_np = polar_offsets(sensor)
+    dx0 = torch.from_numpy(dx0_np).to(dev)
+    dy0 = torch.from_numpy(dy0_np).to(dev)
+    half = wx // 2
+    theta = rng.uniform(-math.pi, math.pi, size=batch)
+    fxy_np = np.stack([
+        rng.uniform(half, half + 1, size=batch), rng.uniform(half, half + 1, size=batch),
+        np.cos(theta), np.sin(theta)], axis=1).astype(np.float32)
+    fxy = torch.from_numpy(fxy_np).to(dev)
+    render = {}
+    for mode, hat_bf16 in (("f32", False), ("bf16", True)):
+        got = render_windows(win, fxy, dx0, dy0, hat_bf16)
+        want = render_windows_plain(win, fxy, dx0, dy0, hat_bf16)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        require(torch.equal(got, want), f"render {mode}: differs from its plain version ({err})")
+        render[mode] = dict(
+            max_abs_err=err, tolerance="exact",
+            ms=time_ms(lambda: render_windows(win, fxy, dx0, dy0, hat_bf16)),
+            ms_in_run=time_ms_in_run(lambda: render_windows(win, fxy, dx0, dy0, hat_bf16)),
+            plain_ms=time_ms(lambda: render_windows_plain(win, fxy, dx0, dy0, hat_bf16)),
+        )
+    # yardstick: grid_sample computes the f32 function (bilinear, border clamp)
+    fx, fy, c, s = (fxy[:, i, None, None] for i in range(4))
+    xs = ((fx + c * dx0) - s * dy0).clamp(0.0, wx - 1.0)
+    ys = ((fy + s * dx0) + c * dy0).clamp(0.0, wx - 1.0)
+    grid = torch.stack([xs / (wx - 1) * 2 - 1, ys / (wx - 1) * 2 - 1], dim=-1)
+    win4 = win[:, None]
+
+    def grid_sample():
+        return torch.nn.functional.grid_sample(
+            win4, grid, mode="bilinear", padding_mode="border", align_corners=True)
+
+    lib_err = float((grid_sample()[:, 0] - render_windows_plain(win, fxy, dx0, dy0, False))
+                    .abs().max())
+    require(lib_err <= 1e-4, f"grid_sample yardstick: max abs err {lib_err} > 1e-4")
+    render["f32"]["library_max_abs_err"] = lib_err
+    samples = batch * dx0.numel()
+    b_ms, b_by = bound(nbytes(win, fxy, dx0, dy0) + samples * 4, samples * 29)
+    smem = _build.load_function("render", "navdv_render_smem_bytes", [ctypes.c_int])(wx)
+    require(smem == render_smem_bytes(wx),
+            f"render kernel asks for {smem} bytes of shared memory, the wrapper's budget "
+            f"assumes {render_smem_bytes(wx)}")
+    return dict(
+        route="cuda", source="navdv_torch/csrc/render.cu",
+        replaces="navdv_tpu/ops/render_pallas.py:61",
+        max_abs_err=render["bf16"]["max_abs_err"], tolerance="exact (both modes)",
+        ms=render["bf16"]["ms"], ms_in_run=render["bf16"]["ms_in_run"],
+        plain_ms=render["bf16"]["plain_ms"],
+        f32_mode=render["f32"], smem_bytes=smem, shape=[batch, *dx0.shape, wx],
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(grid_sample),
+    )
 
 
 def check_lag_kernel(cfg: SimConfig, dev: torch.device, rng) -> dict:
@@ -643,15 +683,21 @@ def require_render_only(counts: dict, phase: str) -> None:
 
 def compare_fam(fam_a, fam_b, poses, st, scan) -> dict:
     """Two familiarity functions on the same poses: the share of equal
-    tie-ordered candidates and the largest familiarity difference."""
+    tie-ordered candidates, the largest familiarity difference, and where
+    the candidates differ, the largest gap in ``fam_b`` between the two
+    choices (a gap within the familiarity difference is a near-tie)."""
     same = n = 0
-    max_d = 0.0
+    max_d = max_gap = 0.0
     for s in poses:
         a, b = fam_a(s, st), fam_b(s, st)
-        same += int((tie_k(a, scan) == tie_k(b, scan)).sum())
+        ka, kb = tie_k(a, scan), tie_k(b, scan)
+        same += int((ka == kb).sum())
         n += a.shape[0]
         max_d = max(max_d, float((a - b).abs().max()))
-    return {"same_k": same / n, "max_abs_dfam": max_d}
+        gap = (b.gather(1, ka[:, None]) - b.gather(1, kb[:, None]))[ka != kb]
+        if gap.numel():
+            max_gap = max(max_gap, float(gap.abs().max()))
+    return {"same_k": same / n, "max_abs_dfam": max_d, "max_gap_where_differ": max_gap}
 
 
 def run_spectral(cfg_main, st, poses, kernel_rate: float) -> NavigationSimulator:
@@ -808,6 +854,214 @@ def run_checkpoint(sim: NavigationSimulator) -> None:
     require(equal, "checkpoint: the loaded library navigates to other final states")
 
 
+def exact_cfg(cfg: SimConfig) -> SimConfig:
+    """``cfg`` for the exact kernel path: the spectral and sector knobs,
+    which only ``"fft"`` reads, cleared."""
+    return dataclasses.replace(
+        cfg, sensor=dataclasses.replace(cfg.sensor, render_mode="full"),
+        scan=dataclasses.replace(cfg.scan, spectral_cutoff=0, fused_dft_precision="off"))
+
+
+def with_hat(cfg: SimConfig, hat: str) -> SimConfig:
+    return dataclasses.replace(cfg, sensor=dataclasses.replace(cfg.sensor, hat_dtype=hat))
+
+
+def with_scan(cfg: SimConfig, **kw) -> SimConfig:
+    return dataclasses.replace(cfg, scan=dataclasses.replace(cfg.scan, **kw))
+
+
+def prepared_fam(cfg: SimConfig, fam_impl: str, st):
+    """``step.fam`` of ``fam_impl`` with its per-library constants built once."""
+    step = make_step_batched(cfg, fam_impl)
+    aux = None if step.lib_prepare is None else step.lib_prepare(st)
+    return lambda s, st_: step.fam(s, st_, aux)
+
+
+def check_roll_identity(cfg4: SimConfig, st4, poses4) -> dict:
+    """At config 4's shapes (u = 5, SSD, cutoff 0), on the main episode's
+    poses: the spectral library minimum of the sector renderer's pooled
+    phi-frame panorama with ``roll_k`` against the same function of that
+    panorama unrolled. Both run in fp64 and return f32, so each result must
+    be within rtol 1e-9 of the other or one f32 rounding step from it. The
+    sector step's candidates against the kernel path's are reported only:
+    config 4's best two headings lie closer than render rounding (ROADMAP
+    C.1)."""
+    sensor, a_fine = cfg4.sensor, cfg4.sensor.n_fine
+    lags, _ = scan_lag_sets(cfg4.scan)
+    lib_min = make_lib_min_fft(sensor, cfg4.scan, lags)
+    aux = lib_min.prepare(st4.lib)
+    render = make_render_batch_rolled(sensor, max(2.0, cfg4.agent.step_size))
+    pooled = make_pooled_panorama(sensor)
+    n = not_equal = 0
+    max_rel, ok = 0.0, True
+    for s in poses4:
+        pano, k = render(st4.landscape, s.xy, s.theta)
+        s_phi = pooled(pano)
+        idx = (torch.arange(a_fine, device=k.device)[None, :] + k.long()[:, None]) % a_fine
+        s_theta = s_phi.gather(2, idx[:, None, :].expand(-1, s_phi.shape[1], -1))
+        got = lib_min(s_phi, st4.lib, None, None, aux, roll_k=k)
+        want = lib_min(s_theta, st4.lib, None, None, aux)
+        diff = (got.double() - want.double()).abs()
+        ulp = (torch.nextafter(want.abs(), torch.tensor(math.inf, device=want.device))
+               - want.abs()).double()
+        ok &= bool((diff <= torch.maximum(1e-9 * want.double().abs(), ulp)).all())
+        n += got.numel()
+        not_equal += int((got != want).sum())
+        max_rel = max(max_rel, float((diff / want.double().abs().clamp_min(1e-30)).max()))
+    sector4 = dataclasses.replace(cfg4, sensor=dataclasses.replace(sensor, render_mode="sector"))
+    agree = compare_fam(prepared_fam(sector4, "fft", st4), make_step_batched(cfg4, "kernel").fam,
+                        poses4, st4, cfg4.scan)
+    out = {"results": n, "not_bit_equal": not_equal, "max_rel_diff": max_rel,
+           "within_rtol_1e-9_or_one_f32_step": ok, "sector_vs_kernel_reported": agree}
+    require(ok, f"roll identity at config 4: relative difference {max_rel} beyond rtol 1e-9 "
+                "and one f32 rounding step")
+    return out
+
+
+def run_sector(cfg4: SimConfig, st4, poses4, dev: torch.device) -> dict:
+    """Config 3 as shipped (``bench_config(3, 50)``, 256 agents): the sector
+    renderer against the full renderer, the simulator's shipped episode
+    against the kernel path on the same trials, candidate agreement of the
+    fused and unfused sector steps with the kernel path, and the roll
+    identity at config 4's shapes. Returns the render kernel's row at
+    config 3's shapes."""
+    t_phase = time.perf_counter()
+    cfg, land, route = bench_config(3, VIEWS)
+    require(cfg.sensor.render_mode == "sector" and cfg.scan.fused_dft_precision != "off",
+            "config 3 ships the fused sector renderer")
+    drift = max(2.0, cfg.agent.step_size)
+    land_t = torch.as_tensor(land, dtype=torch.float32, device=dev)
+    out = {}
+
+    # 1. the rolled render, unrolled, against the full renderer
+    spread = init_state(*make_trials(route, cfg, SECTOR_BATCH, seed=0, heading_sigma=0.5))
+    for hat, tol in SECTOR_RENDER_TOL.items():
+        sensor = dataclasses.replace(cfg.sensor, hat_dtype=hat)
+        pano_phi, k = make_render_batch_rolled(sensor, drift)(land_t, spread.xy, spread.theta)
+        full = make_render_batch(sensor)(land_t, spread.xy, spread.theta)
+        err = float(np.abs(unroll_panorama(pano_phi, k) - full.cpu().numpy()).max())
+        out[f"render_unrolled_vs_full_{hat}"] = err
+        require(err <= tol, f"sector render {hat}: unrolled vs full max abs err {err} > {tol}")
+    wsz = window_geometry(cfg.sensor)[1]
+    corner = (torch.floor(spread.xy).to(torch.int32) - wsz // 2).clamp(0, land.shape[0] - wsz)
+    wins = window_gather(land_t, corner[:, 1].contiguous(), corner[:, 0].contiguous(), wsz, wsz)
+    render3 = check_render(wins, cfg.sensor, dev, np.random.default_rng(3))
+
+    # 2. the shipped episode, and the kernel path on the same trials
+    base = phase_memory_start()
+    sim = NavigationSimulator(cfg, land, route)
+    require(sim.fam_impl == "fft", f"config 3's auto resolved to {sim.fam_impl!r}")
+    require(make_step_batched(cfg, sim.fam_impl).fam.fused,
+            "config 3 did not take the fused sector front end")
+    sim.train()
+    res, counts, episode_s = timed_navigate(sim, n_trials=SECTOR_BATCH, seed=0)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    t_max = cfg.agent.max_steps
+    require(res.record.k.shape == (SECTOR_BATCH, t_max), "sector record shape")
+    require(bool(torch.isfinite(res.record.fam[~res.record.done]).all()), "non-finite familiarity")
+    require_render_only(counts, "sector")
+
+    kcfg = exact_cfg(cfg)
+    st = make_statics(land, sim.library, route)
+    states0 = init_state(*make_trials(route, cfg, SECTOR_BATCH, seed=0))
+    base = phase_memory_start()
+    run_k = make_navigate_batch(kcfg, "kernel")
+    final_k, rec_k = run_k(states0, st)
+    rate_k = float(success_rate(final_k))
+    peak_k = (torch.cuda.max_memory_allocated() - base) / 1e9
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rate_k2 = float(success_rate(run_k(states0, st)[0]))
+    kernel_episode_s = time.perf_counter() - t0
+    require(rate_k2 == rate_k, "a repeated kernel episode gave another success rate")
+
+    # 3. candidate agreement on the kernel episode's poses
+    poses = episode_poses(cfg, states0, rec_k)
+    exact = with_scan(with_hat(cfg, "float32"), spectral_cutoff=0)
+    kernel_f32 = prepared_fam(with_hat(kcfg, "float32"), "kernel", st)
+    fused_f32 = prepared_fam(exact, "fft", st)
+    agree = {
+        "fused_vs_kernel": compare_fam(fused_f32, kernel_f32, poses, st, cfg.scan),
+        "fused_vs_unfused": compare_fam(
+            fused_f32, prepared_fam(with_scan(exact, fused_dft_precision="off"), "fft", st),
+            poses, st, cfg.scan),
+        "shipped_cutoff_vs_kernel_reported": compare_fam(
+            prepared_fam(with_hat(cfg, "float32"), "fft", st), kernel_f32, poses, st, cfg.scan),
+        "shipped_bf16_vs_kernel_bf16_reported": compare_fam(
+            prepared_fam(cfg, "fft", st), prepared_fam(kcfg, "kernel", st), poses, st, cfg.scan),
+    }
+    roll = check_roll_identity(cfg4, st4, poses4)
+    emit({
+        "phase": "sector", "fam_impl": sim.fam_impl, "front_end": "fused", "batch": SECTOR_BATCH,
+        "max_steps": t_max, "library_views": int(sim.library.views.shape[0]),
+        "lags": len(scan_lag_sets(cfg.scan)[0]), "spectral_cutoff": cfg.scan.spectral_cutoff,
+        **out, "render_kernel_config3": render3, "success_rate": res.success_rate,
+        "kernel_success_rate": rate_k, "episode_s": episode_s,
+        "agent_steps_per_s": SECTOR_BATCH * t_max / episode_s,
+        "kernel_episode_s": kernel_episode_s,
+        "kernel_agent_steps_per_s": SECTOR_BATCH * t_max / kernel_episode_s,
+        "launches": counts, "peak_mem_gb": peak, "kernel_peak_mem_gb": peak_k,
+        "poses": len(poses) * SECTOR_BATCH, "pose_steps": list(LAG_POSE_STEPS),
+        "agreement_f32_cutoff_0": agree, "roll_identity_config4": roll,
+        "seconds": time.perf_counter() - t_phase,
+    })
+    require(abs(res.success_rate - rate_k) <= ACCURACY_BAND_3,
+            f"sector: success {res.success_rate} vs the kernel path's {rate_k}")
+    for name in ("fused_vs_kernel", "fused_vs_unfused"):
+        require(agree[name]["same_k"] >= 0.999,
+                f"sector {name}: only {agree[name]['same_k']:.5f} equal candidates")
+    return render3
+
+
+def run_sweep_phase() -> None:
+    """The default ``SweepSpec`` (8 cells, 256 trials, 256 steps, early exit)
+    on the bench world with a 128-trial recall check, into a temporary
+    directory; then the same sweep again, which must resume every cell from
+    disk and launch no kernel."""
+    t_phase = time.perf_counter()
+    _, land, route = bench_config(4, VIEWS)  # the bench world
+    spec = SweepSpec()
+    with tempfile.TemporaryDirectory() as tmp:
+        ops.reset_launch_counts()
+        res = run_sweep(land, route, spec, tmp, verbose=False, tensorboard=False,
+                        recall_check_trials=SWEEP_RECALL_TRIALS)
+        counts = ops.launch_counts()
+        ops.reset_launch_counts()
+        again = run_sweep(land, route, spec, tmp, verbose=False, tensorboard=False,
+                          recall_check_trials=SWEEP_RECALL_TRIALS)
+        resumed_counts = ops.launch_counts()
+        summary = json.loads((Path(tmp) / "summary.json").read_text())
+    cells = {}
+    for key, cfg, _ in spec.cells():
+        r = res[key]
+        impl, want = str(r["fam_impl"]), resolve_fam_impl(cfg, "auto")
+        cells[key] = {
+            "fam_impl": impl, "success_rate": float(r["success_rate"]),
+            "agent_steps_per_s": float(r["agent_steps_per_s"]),
+            "executed_steps": float(r["executed_steps"]), "wall_s": float(r["wall_s"]),
+            "warmup_s": float(r["warmup_s"]), "library_views": int(r["n_library_views"]),
+        }
+        if "success_rate_jnp" in r:
+            cells[key]["success_rate_subset"] = float(r["success_rate_subset"])
+            cells[key]["success_rate_kernel_check"] = float(r["success_rate_jnp"])
+        require(impl == want, f"sweep {key}: ran {impl!r}, auto resolves to {want!r}")
+        require(float(again[key]["success_rate"]) == float(r["success_rate"]),
+                f"sweep {key}: the resumed result differs")
+    emit({"phase": "sweep", "cells": cells, "n_trials": spec.n_trials,
+          "max_steps": spec.max_steps, "recall_check_trials": SWEEP_RECALL_TRIALS,
+          "launches": counts, "resumed_launches": resumed_counts,
+          "summary_cells": len(summary), "seconds": time.perf_counter() - t_phase})
+    for key, c in cells.items():
+        if c["fam_impl"] == "fft":
+            d = abs(c["success_rate_subset"] - c["success_rate_kernel_check"])
+            require(d <= ACCURACY_BAND, f"sweep {key}: fft recall {d} from the kernel path's")
+    require(len(again) == len(res) == 8, "sweep: the default grid has 8 cells")
+    require(not any(resumed_counts.values()), f"sweep resume launched kernels: {resumed_counts}")
+    require(len(summary) == 8, f"sweep: summary.json lists {len(summary)} cells")
+    for name in MAIN_KERNELS:
+        require(counts[name] > 0, f"sweep: kernel {name} was not launched")
+
+
 def run_golden() -> None:
     """The small parity world of the test suite: the port's own library and
     a one-agent episode on the card against the frozen float64 fixture, at
@@ -833,10 +1087,13 @@ def run_golden() -> None:
     fam = rec.fam[0, :6].cpu().double().numpy()
     fam_ok = bool(np.all(np.abs(fam - gold["fam"][:6]) <= 5e-4 + 1e-3 * np.abs(gold["fam"][:6])))
     n_steps = int((~rec.done[0]).sum())
+    final1, rec1 = navigate(land, lib, route, pts[0], hd[0], cfg)  # the one-agent API
+    one_agent_equal = all(torch.equal(a, b[0]) for a, b in zip(rec1 + final1, rec + final))
     emit({"phase": "golden", "library_max_abs_err": lib_err, "k": k.tolist(),
           "golden_k": gold["k"][:6].tolist(), "xy_max_abs_err": xy_err,
           "steps": n_steps, "golden_steps": len(gold["xy"]), "status": int(final.status[0]),
-          "seconds": time.perf_counter() - t0})
+          "one_agent_navigate_equal": one_agent_equal, "seconds": time.perf_counter() - t0})
+    require(one_agent_equal, "golden: navigate() differs from the batched one-agent episode")
     require(np.array_equal(k, gold["k"][:6]), "golden: first 6 candidates differ")
     require(xy_err <= 1e-4, f"golden: positions off by {xy_err}")
     require(fam_ok, "golden: familiarity beyond atol 5e-4 / rtol 1e-3")
@@ -874,20 +1131,24 @@ def main() -> int:
     poses = episode_poses(cfg, states0, rec)
     launches["lag_fam"] = (run_lag(cfg, st, poses), "lag phase")
     sim = run_spectral(cfg, st, poses, float(success_rate(final)))
+    render3 = run_sector(cfg, st, poses, dev)
     del st, states0, final, rec, poses
     torch.cuda.empty_cache()
     run_roll_knobs(*run_roll())
     run_checkpoint(sim)
     del sim
     torch.cuda.empty_cache()
+    run_sweep_phase()
     run_golden()
 
+    results["render"]["config3"] = {key: render3[key] for key in (
+        "shape", "ms", "ms_in_run", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     kernels = [
         {"name": name, "route": r["route"], "source": r["source"], "replaces": r["replaces"],
          "launches": launches[name][0], "launches_in": launches[name][1],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"]}
+         "library_ms": r["library_ms"], **({"config3": r["config3"]} if "config3" in r else {})}
         for name, r in results.items()
     ]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

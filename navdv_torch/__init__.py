@@ -12,18 +12,26 @@ picks.
 
 Layer map:
   L0 landscape   -> :mod:`navdv_torch.landscape`, :mod:`navdv_torch.routes`
-  L1 sensor      -> :mod:`navdv_torch.sensor` (+ ops.window, ops.render)
+  L1 sensor      -> :mod:`navdv_torch.sensor` (+ ops.window, ops.render;
+                    full and sector renderers)
   L2 familiarity -> :mod:`navdv_torch.familiarity` (+ ops.familiarity),
                     :mod:`navdv_torch.familiarity_roll`,
                     :mod:`navdv_torch.familiarity_fft`
   L3 agent loop  -> :mod:`navdv_torch.agent`
-  L4 metrics     -> :mod:`navdv_torch.metrics`
+  L4 metrics     -> :mod:`navdv_torch.metrics`; sweeps -> :mod:`navdv_torch.sweep`
   L5 facade      -> :mod:`navdv_torch.simulator`, :mod:`navdv_torch.checkpoint`
 """
 
 from __future__ import annotations
 
-from navdv_torch.agent import init_state, make_navigate_batch, make_statics
+from navdv_torch.agent import (
+    init_state,
+    make_navigate,
+    make_navigate_batch,
+    make_statics,
+    navigate,
+    step,
+)
 from navdv_torch.config import (
     AgentConfig,
     ScanConfig,
@@ -31,7 +39,7 @@ from navdv_torch.config import (
     SimConfig,
     baseline_config,
 )
-from navdv_torch.landscape import make_landscape
+from navdv_torch.landscape import load_landscape, make_landscape
 from navdv_torch.metrics import episode_metrics, success_rate
 from navdv_torch.routes import make_route
 from navdv_torch.simulator import NavigationResult, NavigationSimulator
@@ -50,11 +58,15 @@ __all__ = [
     "baseline_config",
     "episode_metrics",
     "init_state",
+    "load_landscape",
     "make_landscape",
+    "make_navigate",
     "make_navigate_batch",
     "make_route",
     "make_statics",
     "make_trials",
+    "navigate",
+    "step",
     "success_rate",
     "train_library",
 ]

@@ -12,10 +12,15 @@ deduplicated scan lags against the library by one of four paths:
   (:mod:`navdv_torch.familiarity_fft`);
 
 or ``"auto"``, which resolves as the JAX package's ``choose_fam_impl`` does.
-It then RIDF-min-pools the per-lag minimum over each heading's tolerance
-window and decides: tie-ordered argmin, kinematics, stop rules. The episode
-is a Python loop over ``max_steps`` with done-masking; nothing in it waits
-for the device unless ``early_exit`` asks whether every agent is done.
+With ``render_mode="sector"`` the ``"fft"`` path renders through the sector
+renderer and absorbs its roll in the spectra; every other path renders
+"full", as in the JAX package. The step then RIDF-min-pools the per-lag
+minimum over each heading's tolerance window and decides: tie-ordered
+argmin, kinematics, stop rules. The episode is a Python loop over
+``max_steps`` with done-masking; nothing in it waits for the device unless
+``early_exit`` asks whether every agent is done. ``make_step``,
+``make_navigate``, ``navigate`` and ``step`` are one-agent wrappers over the
+batched step and loop.
 
 Status codes: 0 = running/budget, 1 = reached, 2 = diverged, 3 = off-landscape.
 """
@@ -39,6 +44,7 @@ from navdv_torch.sensor import (
     make_lag_stats,
     make_pooled_panorama,
     make_render_batch,
+    make_render_batch_rolled,
     make_views_from_pooled,
     scan_lag_sets,
     scan_shift_sets,
@@ -69,6 +75,8 @@ _HONOURED_FIELDS = {
 }
 # knobs that one familiarity path reads, as in the JAX package
 _IMPL_KNOBS = {"roll_rank": "roll", "fixed_point_bits": "roll", "spectral_cutoff": "fft"}
+# knobs of the sector renderer, read by render_mode="sector" with "fft" only
+_SECTOR_KNOBS = ("n_sectors", "ring_blocks", "phi_bins", "fused_dft_precision")
 # JAX matmul pass counts: the port's distances are fp64 on every path (C.1)
 _PRECISION_KNOBS = ("matmul_precision", "fft_product_precision")
 
@@ -265,14 +273,25 @@ def _warn_unused_knobs(cfg: SimConfig, fam_impl: str) -> None:
     """A knob set away from its default that ``fam_impl`` does not read
     warns, rather than letting it read as free: the impl-specific knobs of
     the JAX package (``roll_rank``/``fixed_point_bits`` outside ``"roll"``,
-    ``spectral_cutoff`` outside ``"fft"``), the JAX matmul pass counts (the
-    port's distances are fp64), and the knobs of paths not ported yet."""
+    ``spectral_cutoff`` outside ``"fft"``), the sector renderer's knobs
+    outside ``render_mode="sector"`` with ``"fft"`` (one warning each, in the
+    JAX package's words), the JAX matmul pass counts (the port's distances
+    are fp64), and the knobs of paths not ported yet."""
+    sector = cfg.sensor.render_mode == "sector" and fam_impl == "fft"
     unused = []
     for part in (cfg.sensor, cfg.scan):
         for f in dataclasses.fields(part):
-            if f.name in _HONOURED_FIELDS or getattr(part, f.name) == f.default:
+            value = getattr(part, f.name)
+            if f.name in _HONOURED_FIELDS or value == f.default:
                 continue
             if _IMPL_KNOBS.get(f.name) == fam_impl:
+                continue
+            if f.name in _SECTOR_KNOBS:
+                if not sector:
+                    warnings.warn(
+                        f"{type(part).__name__}.{f.name}={value!r} has no effect outside "
+                        f"render_mode='sector' with fam_impl='fft' (got render_mode="
+                        f"{cfg.sensor.render_mode!r}, fam_impl={fam_impl!r})", stacklevel=3)
                 continue
             if f.name in _IMPL_KNOBS:
                 why = f"it applies only to fam_impl={_IMPL_KNOBS[f.name]!r}"
@@ -302,6 +321,65 @@ def _step_from_fam(fam_of, decide):
     return step
 
 
+def _make_sector_fam(cfg: SimConfig, lib_min, lags: np.ndarray, window_idx: torch.Tensor, dev):
+    """The spectral familiarity through the sector renderer (the JAX
+    package's two sector branches): ``(fam_of(states, st, aux=None) ->
+    [B, Nh], prepare(st) -> aux)``, aux = (library spectra, padded
+    landscape), both built once per statics.
+
+    The panorama comes back in the phi frame with its roll k, which the
+    spectra absorb (``roll_k``). With u == 1 and
+    ``fused_dft_precision != "off"`` the front end is fused: the renderer
+    returns the forward DFT of the phi-frame panorama (``contract=
+    lib_min.forward_mats``) and its row sums, and every candidate tiles the
+    full circle, so the lag statistics are the lag-independent totals. The
+    JAX package runs that contraction at the knob's precision (config 3
+    ships one bf16 pass); the port forms it in fp64, like every product on
+    its distance path (ROADMAP C.1, C.10), and reads only "off" or not.
+    Otherwise the pooled phi-frame panorama enters ``lib_min`` and the lag
+    statistics gather the k-shifted residue classes."""
+    drift = max(2.0, cfg.agent.step_size)
+    n_lags = len(lags)
+    fused = cfg.scan.fused_dft_precision != "off" and cfg.sensor.az_upsample == 1
+    if fused:
+        render = make_render_batch_rolled(cfg.sensor, drift, lib_min.forward_mats, dev)
+        a_fine = cfg.sensor.n_fine
+        fc = lib_min.forward_mats.shape[1] // 2
+
+        def lag_min(land_pad, states, lib, lib_aux):
+            spec, k, rowsum, rowsq = render.padded(land_pad, states.xy, states.theta)
+            b = k.shape[0]
+            lag_sum = rowsum.sum(dim=1)[:, None].expand(b, n_lags)
+            lag_sq = rowsq.sum(dim=1)[:, None].expand(b, n_lags)
+            mu = rowsum * (1.0 / a_fine)
+            return lib_min.spectral((spec[..., :fc], spec[..., fc:], mu), lib, lag_sum, lag_sq,
+                                    lib_aux, roll_k=k)
+    else:
+        render = make_render_batch_rolled(cfg.sensor, drift, device=dev)
+        pooled = make_pooled_panorama(cfg.sensor, dev)
+        stats = (make_lag_stats(cfg.sensor, lags, dev, dynamic_roll=True)
+                 if cfg.scan.metric == "ncc" else None)
+
+        def lag_min(land_pad, states, lib, lib_aux):
+            pano, k = render.padded(land_pad, states.xy, states.theta)
+            s = pooled(pano)
+            lag_sum = lag_sq = None
+            if stats is not None:
+                lag_sum, lag_sq = stats(s.double(), k)
+            return lib_min(s, lib, lag_sum, lag_sq, lib_aux, roll_k=k)
+
+    def prepare(st: EpisodeStatics):
+        return lib_min.prepare(st.lib), render.pad(st.landscape)
+
+    def fam_of(states: AgentState, st: EpisodeStatics, aux=None) -> torch.Tensor:
+        lib_aux, land_pad = prepare(st) if aux is None else aux
+        m = lag_min(land_pad, states, st.lib, lib_aux)  # [B, L]
+        return torch.min(m[:, window_idx], dim=2).values  # [B, Nh]
+
+    fam_of.fused = fused  # which front end the step runs, for probes
+    return fam_of, prepare
+
+
 def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None):
     """Batched step: ``step(AgentState[B], EpisodeStatics, aux=None) ->
     (AgentState[B], StepRecord[B])``.
@@ -317,26 +395,30 @@ def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None):
     ``"roll"``/``"fft"`` score the pooled panorama directly; their
     per-library constants (pre-rolled library, library spectra) come from
     ``step.lib_prepare(st)``, passed as ``aux`` (built per call when None).
-    ``step.fam`` exposes the pre-argmin familiarity
+    With ``render_mode="sector"``, ``"fft"`` renders through the sector
+    renderer (:func:`_make_sector_fam`), its aux also carries the padded
+    landscape, and ``step.fam.fused`` says whether it took the fused front
+    end. ``step.fam`` exposes the pre-argmin familiarity
     ``fam_of(states, st, aux=None) -> [B, Nh]``.
     """
     dev = resolve_device(device)
     fam_impl = resolve_fam_impl(cfg, fam_impl)
     if cfg.sensor.render_mode not in ("full", "sector"):
         raise ValueError(f"unknown render_mode {cfg.sensor.render_mode!r}")
+    _warn_unused_knobs(cfg, fam_impl)
+    decide = _make_decide(cfg, dev)
+    lags, window_idx = scan_lag_sets(cfg.scan)
+    window_idx_dev = torch.as_tensor(window_idx.astype(np.int64), device=dev)  # [Nh, 2t+1]
     # the sector renderer serves the spectral path only; like the JAX
     # package, every other path renders "full" (numerically equivalent)
     if cfg.sensor.render_mode == "sector" and fam_impl == "fft":
-        raise NotImplementedError(
-            "render_mode='sector' with fam_impl='fft' runs the sector renderer, "
-            "which is not ported yet: ROADMAP A.11 (sector renderer)"
-        )
-    _warn_unused_knobs(cfg, fam_impl)
-    decide = _make_decide(cfg, dev)
+        lib_min_fft = make_lib_min_fft(cfg.sensor, cfg.scan, lags, dev)
+        fam_of, prepare = _make_sector_fam(cfg, lib_min_fft, lags, window_idx_dev, dev)
+        step = _step_from_fam(fam_of, decide)
+        step.lib_prepare = prepare
+        return step
     render_b = make_render_batch(cfg.sensor, dev)
     pooled = make_pooled_panorama(cfg.sensor, dev)
-    lags, window_idx = scan_lag_sets(cfg.scan)
-    window_idx_dev = torch.as_tensor(window_idx.astype(np.int64), device=dev)  # [Nh, 2t+1]
     ncc = cfg.scan.metric == "ncc"
 
     if fam_impl in ("fft", "roll"):
@@ -446,3 +528,45 @@ def make_navigate_batch(
 
     run.prepare = lib_prepare
     return run
+
+
+def make_step(cfg: SimConfig, fam_impl: str = "kernel", device=None):
+    """Single-agent step ``step(AgentState, EpisodeStatics, aux=None) ->
+    (state', StepRecord)``: the batched step on a batch of one (for parity
+    checks and debugging). ``"kernel"`` is the port's name for the JAX
+    default ``"jnp"``."""
+    batched = make_step_batched(cfg, fam_impl, device)
+
+    def step(state: AgentState, st: EpisodeStatics, aux=None):
+        out, rec = batched(AgentState(*(x[None] for x in state)), st, aux)
+        return AgentState(*(x[0] for x in out)), StepRecord(*(x[0] for x in rec))
+
+    step.lib_prepare = batched.lib_prepare
+    return step
+
+
+def make_navigate(cfg: SimConfig, fam_impl: str = "kernel", device=None):
+    """Single episode ``navigate(state0, statics) -> (final_state,
+    StepRecord[T])``, the record time-major as the JAX scan returns it: the
+    full ``max_steps`` loop on a batch of one."""
+    run = make_navigate_batch(cfg, fam_impl, device=device)
+
+    def navigate(state0: AgentState, st: EpisodeStatics):
+        final, rec = run(AgentState(*(x[None] for x in state0)), st)
+        return AgentState(*(x[0] for x in final)), StepRecord(*(x[0] for x in rec))
+
+    return navigate
+
+
+def navigate(landscape, lib: LibraryPack, route, start_xy, start_theta, cfg: SimConfig,
+             fam_impl: str = "kernel", device=None):
+    """One episode from a start pose, with ``oracle.navigate``'s signature
+    (the JAX package's convenience entry)."""
+    dev = resolve_device(device)
+    st = make_statics(landscape, lib, route, dev)
+    return make_navigate(cfg, fam_impl, dev)(init_state(start_xy, start_theta, dev), st)
+
+
+def step(state: AgentState, st: EpisodeStatics, cfg: SimConfig, device=None):
+    """One step of one agent on the ``"kernel"`` path (tests, debugging)."""
+    return make_step(cfg, device=device)(state, st)

@@ -4,9 +4,8 @@ A copy of the JAX package's configuration: field names and defaults are
 identical, so a config built in one package carries to the other field by
 field (``convert.config_from``). Comments are trimmed to what the port
 honours; fields that select implementations the port does not have yet
-(the sector renderer, conv, infomax) are kept so that the dataclasses stay
-equal; the port raises where such a path is asked for and warns where such
-a knob is set.
+(conv, infomax) are kept so that the dataclasses stay equal; the port
+raises where such a path is asked for and warns where such a knob is set.
 """
 
 from __future__ import annotations
@@ -34,7 +33,12 @@ class SensorConfig:
     # rounded to bf16, products accumulated in f32). "bfloat16" also selects
     # the bf16 box filter in sensor.make_pooled_panorama.
     hat_dtype: str = "float32"
-    # JAX-only renderer knobs (sector renderer); the port renders "full".
+    # "full" or "sector": heading = k*bin_width + phi, the panorama rendered
+    # in the phi frame and its k roll absorbed in the spectra; takes effect
+    # only with fam_impl="fft" (other paths render "full", numerically
+    # equivalent). n_sectors / ring_blocks are validated as in the JAX
+    # package and change nothing in the port's output (sensor.py). phi_bins:
+    # the JAX package's approximate phi-quantized variant, 0 = off.
     render_mode: str = "full"
     n_sectors: int = 8
     ring_blocks: int = 1
@@ -66,6 +70,10 @@ class ScanConfig:
     # decomposition cancels (ops/familiarity.py).
     matmul_precision: str = "high"
     # fft_product_precision: a JAX pass count too, ignored likewise.
+    # fused_dft_precision: sector + "fft" + az_upsample == 1 only; "off"
+    # takes the unfused sector branch, any other value the fused front end,
+    # whose DFT contraction the port forms in fp64 whatever pass count the
+    # value names (ROADMAP C.10).
     # spectral_cutoff: "fft" only, the first bins of the azimuth DFT kept
     # (0 = all, exact). fixed_point_bits / roll_rank: "roll" + SSD only
     # (8-bit exact SSD; low-rank split with a bf16 residual product).
@@ -156,9 +164,9 @@ def baseline_config(n: int) -> SimConfig:
 
 def baseline_fam_impl(n: int) -> str:
     """The JAX package's familiarity implementation per benchmark config,
-    in its names. The port runs each of them, under the same names, except
-    config 3's (the spectral path through the sector renderer, ROADMAP
-    A.11); ``agent.resolve_fam_impl`` maps "auto"."""
+    in its names. The port runs each of them under the same names (config
+    3's "fft" through the sector renderer); ``agent.resolve_fam_impl`` maps
+    "auto", which config 5's sweep resolves per cell."""
     return {1: "fft", 2: "roll", 3: "fft", 4: "fft", 5: "auto"}[n]
 
 

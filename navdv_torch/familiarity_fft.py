@@ -30,6 +30,12 @@ that tensor, summed in fp64 per residue class j = l mod u. At
 ``spectral_cutoff=0`` the path equals the kernel path up to fp64 rounding.
 The JAX package's split into unstacked re/im products for tall sensors
 (R = 64) was an MXU tile choice; here one stacked product serves every R.
+
+``roll_k`` (i32[B], from the sector renderer) absorbs the exact azimuth roll
+``S_theta[a] = S_phi[a + k]`` in the spectral domain:
+``DFT(S_theta)[f] = e^{i 2π f k / A} DFT(S_phi)[f]``, a per-(b, f) rotation
+of the spectra in fp64, with ``k·f mod A`` reduced in exact integers first.
+The row means are roll-invariant; SSD's norms shift residue class by k.
 """
 
 from __future__ import annotations
@@ -40,8 +46,6 @@ import torch
 from navdv_torch.config import ScanConfig, SensorConfig
 from navdv_torch.device import resolve_device
 from navdv_torch.familiarity import NCC_EPS, PAD_PENALTY, LibraryPack
-
-_SECTOR = "ROADMAP A.11 (sector renderer)"
 
 
 def _forward_weights(a: int) -> tuple[np.ndarray, np.ndarray]:
@@ -83,16 +87,18 @@ def make_lib_min_fft(sensor: SensorConfig, scan: ScanConfig, lags: np.ndarray, d
     from the pooled panorama S (no candidate extraction).
 
     ``lib_min.prepare(lib)`` builds the library spectra once per library.
-    ``lib_min.spectral(spec, lib, lag_sum, lag_sq, aux=None)`` enters after
-    the forward transform, with ``spec = (sre, sim, mu)``: the DC-masked
-    spectra f[B, R, F] of the candidate signal S/u and its row means f[B, R]
-    (the fused sector front end of ROADMAP A.11 will produce them; it runs
-    at u == 1, where S/u is S). ``lib_min.forward_mats`` is the analysis
-    matrix f64[A, 2F] = (Wre with its DC column zeroed | Wim).
+    ``lib_min.spectral(spec, lib, lag_sum, lag_sq, aux=None, roll_k=None)``
+    enters after the forward transform, with ``spec = (sre, sim, mu)``: the
+    DC-masked spectra f[B, R, F] of the candidate signal S/u and its row
+    means f[B, R] (the fused sector front end produces them, at u == 1,
+    where S/u is S). ``lib_min.forward_mats`` is the analysis matrix
+    f64[A, 2F] = (Wre with its DC column zeroed | Wim).
 
     ``lag_sum``/``lag_sq`` f64[B, L] (``sensor.make_lag_stats`` of the pooled
     panorama in fp64) serve NCC, and SSD in ``.spectral``; ``lib_min`` takes
-    SSD's norms from S itself. ``roll_k`` belongs to the sector renderer.
+    SSD's norms from S itself. ``roll_k`` i32[B] is the sector renderer's
+    roll: S (or ``spec``) is then the phi-frame panorama, and the result is
+    that of the true-heading panorama ``S[:, :, (a + k) mod A]``.
     """
     if scan.metric not in ("ssd", "ncc"):
         raise ValueError(f"unknown familiarity metric {scan.metric!r}")
@@ -124,7 +130,17 @@ def make_lib_min_fft(sensor: SensorConfig, scan: ScanConfig, lags: np.ndarray, d
     zw = _t64(np.concatenate([zwre[:, :fc], zwim[:, :fc]], axis=1))  # [W, 2F]
     synth = _t64(np.stack([vre[:fc], vim[:fc]], axis=1).reshape(2 * fc, len(lags)))  # [(f, c), L]
     residues = torch.as_tensor(np.mod(lags, u).astype(np.int64), device=dev)
+    f_idx = torch.arange(fc, dtype=torch.int64, device=dev)
     inv_u = 1.0 / u
+
+    def _rotate(sre: torch.Tensor, sim: torch.Tensor, roll_k: torch.Tensor):
+        """Spectra f64[B, R, F] of the phi frame -> those of the true heading:
+        times ``e^{i 2π f k / A}``, with ``k·f mod A`` exact in int64 (the raw
+        angle would reach ~A·π rad)."""
+        kf = (roll_k.long()[:, None] * f_idx[None, :]) % a  # [B, F]
+        ang = (2.0 * np.pi / a) * kf.double()
+        ck, sk = torch.cos(ang)[:, None, :], torch.sin(ang)[:, None, :]
+        return sre * ck - sim * sk, sre * sk + sim * ck
 
     def _prepare_rows(zrows: torch.Tensor):
         """Library spectra stacked for the batched product, and row sums:
@@ -177,32 +193,31 @@ def make_lib_min_fft(sensor: SensorConfig, scan: ScanConfig, lags: np.ndarray, d
             d = 1.0 - zdot / p + pen[None, :, None]
             return torch.amin(d, dim=1).T.float()  # [B, L]
 
-    def _no_roll(roll_k):
-        if roll_k is not None:
-            raise NotImplementedError(
-                f"roll_k comes from the sector renderer, which is not ported yet: {_SECTOR}"
-            )
-
     def lib_min(s, lib: LibraryPack, lag_sum, lag_sq, aux=None, roll_k=None):
-        _no_roll(roll_k)
         if aux is None:
             aux = prepare(lib)
         b = s.shape[0]
         su = (s * inv_u).double()  # the kernel path's candidate values, widened
-        spec = su.reshape(b * r, a) @ forward_mats  # [B*R, (c, F)]
-        x = spec.view(b, r, 2, fc).permute(3, 0, 2, 1).reshape(fc, b, 2 * r)
+        spec = (su.reshape(b * r, a) @ forward_mats).view(b, r, 2, fc)
+        if roll_k is not None:
+            spec = torch.stack(_rotate(spec[:, :, 0], spec[:, :, 1], roll_k), dim=2)
+        x = spec.permute(3, 0, 2, 1).reshape(fc, b, 2 * r)
         cross = _cross(x, torch.mean(su, dim=2), aux)
         if scan.metric == "ssd":
-            # |cand(l)|^2 = |T_j|^2, j = l mod u
+            # |cand(l)|^2 = |T_j|^2, j = l mod u, or (l + k) mod u in the phi frame
             csq = torch.sum((su * su).view(b, r, w, u), dim=(1, 2))  # [B, u]
-            lag_sq = csq[:, residues]
+            if roll_k is None:
+                lag_sq = csq[:, residues]
+            else:
+                lag_sq = csq.gather(1, (residues[None, :] + roll_k.long()[:, None]) % u)
         return _finish(cross, lib, lag_sum, lag_sq, aux)
 
     def lib_min_spectral(spec, lib: LibraryPack, lag_sum, lag_sq, aux=None, roll_k=None):
-        _no_roll(roll_k)
         if aux is None:
             aux = prepare(lib)
         sre, sim, mu = (t.double() for t in spec)
+        if roll_k is not None:
+            sre, sim = _rotate(sre, sim, roll_k)
         b = sre.shape[0]
         x = torch.cat([sre, sim], dim=1).permute(2, 0, 1).reshape(fc, b, 2 * r)
         return _finish(_cross(x, mu, aux), lib, lag_sum, lag_sq, aux)

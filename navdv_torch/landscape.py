@@ -1,7 +1,7 @@
-"""Landscape textures: host NumPy, seeded.
+"""Landscape textures: host NumPy, seeded, or loaded from a file.
 
-A copy of the JAX package's generator, bit for bit: the same seed gives the
-same f32[H, W] array in [0, 1].
+A copy of the JAX package's generator and loader, bit for bit: the same seed
+(or file) gives the same f32[H, W] array in [0, 1].
 """
 
 from __future__ import annotations
@@ -83,6 +83,18 @@ def _checker(size: tuple[int, int], cell: int) -> np.ndarray:
     h, w = size
     yy, xx = np.mgrid[0:h, 0:w]
     return (((yy // cell) + (xx // cell)) % 2).astype(np.float64)
+
+
+def load_landscape(path: str) -> np.ndarray:
+    """Load a landscape texture from an image file (PNG/JPEG/TIFF via PIL,
+    imported only here) or a ``.npy`` array; grayscale-converted and
+    normalized to f32 [0, 1]."""
+    if path.endswith(".npy"):
+        return _normalize(np.load(path).astype(np.float64))
+    from PIL import Image
+
+    img = Image.open(path).convert("L")
+    return _normalize(np.asarray(img, dtype=np.float64))
 
 
 def make_landscape(

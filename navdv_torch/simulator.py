@@ -44,7 +44,10 @@ class NavigationSimulator:
 
     ``fam_impl="auto"`` picks the familiarity path the JAX package picks for
     ``cfg`` (``agent.resolve_fam_impl``); ``self.fam_impl`` is the port's
-    name for it. ``device=None`` means the card."""
+    name for it. Every BASELINE config runs as the JAX package ships it:
+    configs 1 and 4 on ``"fft"``, 2 on ``"roll"``, and 3 on ``"fft"``
+    through the sector renderer's fused front end. ``device=None`` means
+    the card."""
 
     def __init__(self, cfg: SimConfig, landscape, route, fam_impl: str = "auto", device=None):
         self.cfg = cfg

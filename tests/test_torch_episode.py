@@ -117,20 +117,30 @@ def test_early_exit_matches_full_loop(small_cfg, small_world):
 
 @pytest.mark.parametrize(
     "fam_impl,error,match",
-    [("fft-sector", NotImplementedError, "A.11"), ("auto-sector", NotImplementedError, "A.11"),
+    [("fft-sector", None, None), ("auto-sector", None, None),
      ("conv", NotImplementedError, "A.12"), ("infomax", NotImplementedError, "A.13"),
      ("roll-l1", ValueError, "unknown familiarity metric"), ("jnp", ValueError, "'plain'"),
      ("pallas", ValueError, "'kernel'"), ("bogus", ValueError, "unknown fam_impl")],
 )
-def test_unported_fam_impls_raise(small_cfg, fam_impl, error, match):
-    """Paths not ported raise naming their ROADMAP item (the spectral path
-    through the sector renderer: A.11), JAX names raise naming the port's."""
+def test_unported_fam_impls_raise(small_cfg, small_world, fam_impl, error, match):
+    """Paths not ported raise naming their ROADMAP item, JAX names raise
+    naming the port's. The spectral path through the sector renderer is
+    ported: "fft" and "auto" build it and run one step."""
     cfg = config_from(small_cfg)
     fam_impl, _, variant = fam_impl.partition("-")
     if variant == "sector":  # with a 576-px sensor, "auto" resolves to "fft" too
         cfg = dataclasses.replace(cfg, sensor=dataclasses.replace(
             cfg.sensor, n_radial=8, n_azimuth=72, render_mode="sector"))
-    elif variant:
+        land, route = small_world
+        st = make_statics(land, nt.train_library(land, route, cfg, device="cpu"), route,
+                          device="cpu")
+        pts, hd = oracle.resample_route(route, cfg.capture_spacing)
+        step = make_step_batched(cfg, fam_impl, device="cpu")
+        out, rec = step(init_state(pts[:2], hd[:2], device="cpu"), st, step.lib_prepare(st))
+        assert rec.k.shape == (2,) and bool(torch.isfinite(rec.fam).all())
+        assert not bool(out.done.any())
+        return
+    if variant:
         cfg = dataclasses.replace(cfg, scan=dataclasses.replace(cfg.scan, metric=variant))
     with pytest.raises(error, match=match):
         make_step_batched(cfg, fam_impl, device="cpu")

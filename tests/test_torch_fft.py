@@ -91,7 +91,7 @@ def test_fft_matches_port_plain_path(metric, u, tol_bins):
 @pytest.mark.parametrize("metric", ["ssd", "ncc"])
 def test_fft_spectral_entry_equals_lib_min(metric):
     """``.spectral`` fed the forward transform of S/u (``forward_mats``)
-    gives ``lib_min``'s result; ``roll_k`` waits for the sector renderer."""
+    gives ``lib_min``'s result; ``roll_k`` of zeros is no roll."""
     cfg = _cfg(metric, 1, cutoff=9)
     lags, pcfg, _, (s, lib, lag_sum, lag_sq) = _inputs(cfg, 2, b=3, nl=5)
     fft = tfft.make_lib_min_fft(pcfg.sensor, pcfg.scan, lags, "cpu")
@@ -104,8 +104,12 @@ def test_fft_spectral_entry_equals_lib_min(metric):
     sq = lag_sq if metric == "ncc" else norms
     got = fft.spectral((spec[..., :fc], spec[..., fc:], s64.mean(2)), lib, lag_sum, sq)
     np.testing.assert_allclose(got.numpy(), fft(s, lib, lag_sum, lag_sq).numpy(), rtol=1e-9)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        fft(s, lib, lag_sum, lag_sq, roll_k=torch.zeros(3, dtype=torch.int32))
+    zeros = torch.zeros(3, dtype=torch.int32)
+    np.testing.assert_allclose(fft(s, lib, lag_sum, lag_sq, roll_k=zeros).numpy(),
+                               fft(s, lib, lag_sum, lag_sq).numpy(), rtol=1e-12)
+    np.testing.assert_allclose(
+        fft.spectral((spec[..., :fc], spec[..., fc:], s64.mean(2)), lib, lag_sum, sq,
+                     roll_k=zeros).numpy(), got.numpy(), rtol=1e-12)
 
 
 @pytest.mark.parametrize("metric", ["ssd", "ncc"])

@@ -52,20 +52,20 @@ def _auto_cases():
 @pytest.mark.parametrize("i", range(len(_auto_cases())))
 def test_auto_resolves_like_jax(i):
     """``"auto"`` picks the JAX package's path, its "jnp" becoming the
-    port's "kernel"; config 3 (the sector renderer) raises naming A.11."""
+    port's "kernel"; every config builds its step warning-free (the shipped
+    knobs are the chosen path's own), config 3 through the sector renderer,
+    and its simulator too."""
     jcfg = _auto_cases()[i]
     want = jc.choose_fam_impl(jcfg)
     pcfg = config_from(jcfg)
     assert resolve_fam_impl(pcfg, "auto") == {"jnp": "kernel"}.get(want, want)
-    if jcfg.sensor.render_mode == "sector":
-        with pytest.raises(NotImplementedError, match="A.11"):
-            make_step_batched(pcfg, "auto", device="cpu")
-        with pytest.raises(NotImplementedError, match="A.11"):
-            nt.NavigationSimulator(pcfg, np.zeros((64, 64)), np.zeros((2, 2)), device="cpu")
-    else:
-        with warnings.catch_warnings():
-            warnings.simplefilter("error")  # the shipped knobs are the chosen path's own
-            make_step_batched(pcfg, "auto", device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        make_step_batched(pcfg, "auto", device="cpu")
+        if jcfg.sensor.render_mode == "sector":
+            sim = nt.NavigationSimulator(pcfg, np.zeros((64, 64)), np.zeros((2, 2)),
+                                         device="cpu")
+            assert sim.fam_impl == "fft"
 
 
 @pytest.mark.parametrize("fam_impl", ["fft", "roll"])
@@ -256,9 +256,9 @@ def test_checkpoint_npz_round_trip(tmp_path):
 
 
 def test_baseline_fam_impls_resolve_in_the_port():
-    """The JAX package's shipped paths for configs 1, 2 and 4 are the port's
-    own names, and "auto" resolves to them."""
-    for n in (1, 2, 4):
+    """The JAX package's shipped paths for configs 1-4 are the port's own
+    names, and "auto" resolves to them."""
+    for n in (1, 2, 3, 4):
         cfg = tc.baseline_config(n)
         assert resolve_fam_impl(cfg, tc.baseline_fam_impl(n)) == tc.baseline_fam_impl(n)
         assert resolve_fam_impl(cfg, "auto") == tc.baseline_fam_impl(n)
