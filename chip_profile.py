@@ -13,24 +13,24 @@ timed episodes). Trains
 the library, prepares its per-library constants once (as
 ``NavigationSimulator`` does), warms the episode up, times three plain
 episodes (host clock around work that ends in a synchronize), then runs one
-more under ``torch.profiler`` and prints one JSON line: the episode's wall
-time, the device time summed by kernel name, and the device's idle share
-(1 - summed kernel time / profiled wall time; one stream, so kernels never
-overlap). Exits non-zero without a card or when the profiler records no
-device activity.
+more under ``navdv_torch.utils.profiling.trace`` and prints one JSON line:
+the episode's wall time, the device time summed by kernel name
+(``top_ops``), and the device's idle share (1 - summed kernel time /
+profiled wall time; one stream, so kernels never overlap). The Chrome trace
+goes to ``build/traces/``. Exits non-zero without a card or when the
+profiler records no device activity.
 """
 
 from __future__ import annotations
 
 import argparse
-import collections
 import json
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (
     BATCH,
@@ -46,6 +46,9 @@ from navdv_torch.agent import init_state, make_navigate_batch, make_statics
 from navdv_torch.metrics import success_rate
 from navdv_torch.training import train_library
 from navdv_torch.trials import make_trials
+from navdv_torch.utils.profiling import top_ops, trace
+
+TRACE_DIR = Path(__file__).resolve().parent / "build" / "traces"
 
 
 def cell(fam_impl: str, config: int):
@@ -87,23 +90,19 @@ def main() -> int:
         walls.append(time.perf_counter() - t0)
 
     torch.cuda.reset_peak_memory_stats()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace(str(TRACE_DIR)) as prof:
         t0 = time.perf_counter()
         run(states0, st, aux)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
 
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[evt.name][0] += evt.time_range.elapsed_us() / 1e3  # us -> ms
-            by_name[evt.name][1] += 1
-    busy_ms = sum(v[0] for v in by_name.values())
-    if busy_ms <= 0:
-        print("chip_profile: the profiler recorded no device time", file=sys.stderr)
+    try:
+        rows = top_ops(prof, n=None)
+    except ValueError as e:
+        print(f"chip_profile: {e}", file=sys.stderr)
         return 1
+    busy_ms = sum(r["self_us"] for r in rows) / 1e3
     steps = cfg.agent.max_steps
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     print(json.dumps({
         "phase": "profile", "card": card_line(), "fam_impl": args.fam_impl, "config": config,
         "library_views": int(lib.views.shape[0]), "batch": batch, "max_steps": steps,
@@ -113,8 +112,8 @@ def main() -> int:
         "device_ms_per_step": busy_ms / steps,
         "device_idle_share": 1.0 - busy_ms / (prof_wall * 1e3),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "kernels": [{"name": name[:80], "ms": ms, "count": n, "ms_per_step": ms / steps}
-                    for name, (ms, n) in top[:15]],
+        "kernels": [{"name": r["op"][:80], "ms": r["self_us"] / 1e3, "count": r["count"],
+                     "ms_per_step": r["self_us"] / 1e3 / steps} for r in rows[:15]],
     }), flush=True)
     return 0
 

@@ -109,23 +109,51 @@ Phases, one JSON line each:
             heading error at every capture pose;
 16. golden — the port's own training plus a one-agent episode on the small
             parity world against ``tests/golden_oracle_small.npz``; the
-            one-agent ``navigate()`` must give the batched episode's record.
+            one-agent ``navigate()`` must give the batched episode's record;
+17. parallel — (after sweep) ``navdv_torch.parallel`` over ranks this
+            script starts as processes of its own (``--parallel-child``,
+            torchrun's variables): NCCL with a card per rank where there are
+            2 cards or more (a world of 4 from 4 cards, else 2), gloo with 2
+            ranks sharing the one card otherwise. First the min-distance
+            kernel on a library shard that holds padding (the main library
+            padded to 52 views, its last shard) against that shard's real
+            views: the same familiarity (rtol 1e-6). Then, held against the
+            unsharded results: (a) the main episode (1024 trials, 50 views,
+            66 steps, ``"kernel"``) on meshes (world, 1), (1, world) and, in
+            a world of 4, (2, 2): >= 99.9% same first k, first-step fam
+            within rtol 1e-6, success within 0.025, exactly one MIN
+            collective per step on every rank of a lib mesh, window, render
+            and min distance launched on every rank; bit-equality of k, fam
+            and status reported; (b) the lib-axis probe at the main trials'
+            start poses: >= 99.9% same best heading; (c) config 2 on
+            ``"roll"`` (500 views, 512 trials) on (1, world) against the roll
+            phase: success within 0.010, >= 99.9% same first candidate; (d)
+            the default ``SweepSpec`` with cells over (world, 1): every
+            cell's success equal to the sweep phase's, then resumed with no
+            launch. Reported: each mesh's episode seconds (the slowest
+            rank's) and agent-steps/s, and the MIN's time per step alone.
+            ``--parallel-only`` runs this phase and the main, roll and sweep
+            phases it compares against, and prints no kernels or ok line.
 
 Every phase line carries its ``seconds``. Then the card line, the kernels
 line (with each kernel's ``launches_by_phase``: main, lag, conv, infomax,
-analysis) and, last, ``{"ok": true, "device": ...}``. Any failed check raises and
-the script exits non-zero. Without a CUDA device it exits 2 and prints no
-result.
+parallel (summed over ranks and meshes), analysis) and, last, ``{"ok":
+true, "device": ...}``. Any failed check raises and the script exits
+non-zero. Without a CUDA device it exits 2 and prints no result.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import dataclasses
+import datetime
 import json
 import math
+import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -134,6 +162,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from navdv_torch import _build, ops
 from navdv_torch.analysis import (
@@ -162,7 +191,7 @@ from navdv_torch.config import (
 )
 from navdv_torch.checkpoint import load_infomax, save_infomax
 from navdv_torch.device import resolve_device
-from navdv_torch.familiarity import pack_library, zscore
+from navdv_torch.familiarity import LibraryPack, pack_library, pad_library, zscore
 from navdv_torch.familiarity_conv import conv_lag_geometry, unfold_contraction
 from navdv_torch.familiarity_fft import make_lib_min_fft
 from navdv_torch.familiarity_infomax import applied_updates, initial_weights, train_infomax
@@ -184,6 +213,14 @@ from navdv_torch.ops.lag import (
 from navdv_torch.ops.render import render_smem_bytes, render_windows, render_windows_plain
 from navdv_torch.ops.window import window_gather, window_gather_plain
 from navdv_torch.oracle import resample_route
+from navdv_torch.parallel import (
+    collective_counts,
+    init_distributed,
+    make_mesh,
+    make_navigate_sharded,
+    reset_collective_counts,
+    shard_statics,
+)
 from navdv_torch.routes import make_route
 from navdv_torch.sensor import (
     make_pooled_panorama,
@@ -228,6 +265,8 @@ MAP_BATCH = 1024
 # analysis phase: the kernel map against the fft map at cutoff 0, both fp64
 # distances, |dfam| over the library's largest squared norm
 MAP_DFAM_TOL = 1e-6
+PARALLEL_TIMEOUT_S = 600  # the parallel phase's ranks, all together
+PARALLEL_GROUP_TIMEOUT_S = 300  # a rank that waits longer in a collective fails
 SLEEP_CYCLES = 50_000_000  # ~25 ms at the H100's clock: outlasts enqueuing one run
 GOLDEN = Path(__file__).resolve().parent / "tests" / "golden_oracle_small.npz"
 
@@ -785,7 +824,7 @@ def run_spectral(cfg_main, st, poses, kernel_rate: float) -> NavigationSimulator
 def run_roll():
     """Config 2 as shipped through the simulator's default "auto" (the JAX
     package's "roll"), against the kernel path on the same trials. Returns
-    what the knob phase reuses."""
+    what the knob and parallel phases reuse."""
     t_phase = time.perf_counter()
     cfg, land, route = bench_config(2, CONFIG2_VIEWS)
     base = phase_memory_start()
@@ -822,7 +861,7 @@ def run_roll():
             f"roll: success {res.success_rate} vs the kernel path's {rate_k}")
     require(same_k0 >= 0.999, f"roll: only {same_k0:.5f} of agents chose the kernel's first candidate")
     require_render_only(counts, "roll")
-    return cfg, st, states0
+    return cfg, st, states0, res
 
 
 def run_roll_knobs(cfg, st, states0) -> None:
@@ -1053,11 +1092,11 @@ def run_sector(cfg4: SimConfig, st4, poses4, dev: torch.device) -> dict:
     return render3
 
 
-def run_sweep_phase() -> None:
+def run_sweep_phase() -> dict[str, float]:
     """The default ``SweepSpec`` (8 cells, 256 trials, 256 steps, early exit)
     on the bench world with a 128-trial recall check, into a temporary
     directory; then the same sweep again, which must resume every cell from
-    disk and launch no kernel."""
+    disk and launch no kernel. Returns each cell's success rate."""
     t_phase = time.perf_counter()
     _, land, route = bench_config(4, VIEWS)  # the bench world
     spec = SweepSpec()
@@ -1100,6 +1139,7 @@ def run_sweep_phase() -> None:
     require(len(summary) == 8, f"sweep: summary.json lists {len(summary)} cells")
     for name in MAIN_KERNELS:
         require(counts[name] > 0, f"sweep: kernel {name} was not launched")
+    return {key: c["success_rate"] for key, c in cells.items()}
 
 
 def step_device_ms(step, states, st, aux=None) -> float:
@@ -1329,6 +1369,287 @@ def run_infomax(cfg, st, states0, poses) -> dict:
     return counts
 
 
+def parallel_layout() -> tuple[str, int, int]:
+    """(backend, world, cards) of the parallel phase: NCCL with a card per
+    rank where there are two cards or more (a world of 4 from 4 cards, else
+    2); on one card, gloo with 2 ranks sharing it (NCCL refuses two ranks
+    on one card)."""
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        return "nccl", (4 if cards >= 4 else 2), cards
+    return "gloo", 2, cards
+
+
+def parallel_meshes(world: int) -> list[tuple[int, int]]:
+    return [(world, 1), (1, world)] + ([(2, 2)] if world == 4 else [])
+
+
+def main_reference(cfg, st, states0, final, rec) -> dict:
+    """What the parallel phase holds its config-4 episodes and probe
+    against: the main phase's library, trials and unsharded results, and the
+    kernel path's unsharded probe at the trials' start poses."""
+    probe = make_familiarity_probe(cfg, "kernel")
+    return {
+        **{f"lib_{k}": v.cpu().numpy() for k, v in st.lib._asdict().items()},
+        "starts": states0.xy.cpu().numpy(), "thetas": states0.theta.cpu().numpy(),
+        "k": rec.k.cpu().numpy(), "fam": rec.fam.cpu().numpy(),
+        "status": final.status.cpu().numpy(),
+        "probe_fam": probe(states0.xy, states0.theta, st).cpu().numpy(),
+    }
+
+
+def roll_reference(st, states0, res) -> dict:
+    """The roll phase's library, trials, first candidates and success."""
+    return {
+        **{f"roll_lib_{k}": v.cpu().numpy() for k, v in st.lib._asdict().items()},
+        "roll_starts": states0.xy.cpu().numpy(), "roll_thetas": states0.theta.cpu().numpy(),
+        "roll_k0": res.record.k[:, 0].cpu().numpy(),
+        "roll_success": np.asarray(res.success_rate),
+    }
+
+
+def check_padded_shard(cfg, ref: dict) -> dict:
+    """The min-distance kernel on a library shard that holds padding: the
+    main library padded to a multiple of 4 (``valid = 0`` views) and its
+    last shard, against that shard's real views alone, through the kernel
+    path's familiarity at the main trials' start poses. Padded views must
+    never win: the same familiarity."""
+    land, route = slice_config()[1:]
+    lib = LibraryPack(*(torch.from_numpy(ref[f"lib_{k}"]) for k in LibraryPack._fields))
+    padded = pad_library(lib, 4)
+    per = padded.views.shape[0] // 4
+    shard = LibraryPack(*(x[3 * per:] for x in padded))
+    n_real = int(shard.valid.sum())
+    require(n_real < per, "the padded shard holds no padding")
+    real = LibraryPack(*(x[:n_real] for x in shard))
+    states = init_state(ref["starts"], ref["thetas"])
+    fam = make_step_batched(cfg, "kernel").fam
+    got = fam(states, make_statics(land, shard, route))
+    want = fam(states, make_statics(land, real, route))
+    diff = float((got - want).abs().max())
+    require(bool(((got - want).abs() <= 1e-6 * want.abs()).all()),
+            f"padded shard: familiarity off the real views' by {diff} (rtol 1e-6)")
+    return {"views": per, "padded_views": per - n_real, "max_abs_dfam": diff,
+            "bit_equal": bool(torch.equal(got, want))}
+
+
+def run_parallel(main_ref: dict, roll_ref: dict, sweep_ref: dict) -> dict:
+    """The parallel phase: ``world`` ranks, each a process that runs this
+    script with ``--parallel-child``, hold the library-sharded and
+    data-parallel episodes, the lib-axis probe, config 2 on roll and the
+    sweep's cells over ranks against the unsharded results of the main, lag,
+    roll and sweep phases. Returns the kernel launches of the config-4
+    episodes, summed over ranks and meshes."""
+    t_phase = time.perf_counter()
+    backend, world, cards = parallel_layout()
+    cfg = slice_config()[0]
+    padded = check_padded_shard(cfg, main_ref)
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(Path(tmp) / "inputs.npz", **main_ref, **roll_ref)
+        (Path(tmp) / "spec.json").write_text(json.dumps({
+            "backend": backend, "meshes": parallel_meshes(world), "sweep": sweep_ref}))
+        results = launch_parallel_children(tmp, world)
+    meshes = {}
+    for shape in parallel_meshes(world):
+        tag = f"{shape[0]}x{shape[1]}"
+        rs = [r["meshes"][tag] for r in results]
+        wall = max(r["episode_s"] for r in rs)
+        meshes[tag] = {
+            **{k: rs[0][k] for k in ("same_k0", "max_rel_dfam0", "success_rate", "bit_equal")},
+            "episode_s": wall, "agent_steps_per_s": BATCH * cfg.agent.max_steps / wall,
+            "episode_s_by_rank": [r["episode_s"] for r in rs],
+            "lib_pmin_by_rank": [r["lib_pmin"] for r in rs],
+            "collective_ms_per_step": [r["collective_ms_per_step"] for r in rs],
+            "launches_by_rank": [r["launches"] for r in rs],
+        }
+    out = {k: results[0][k] for k in ("probe", "roll", "sweep")}
+    emit({"phase": "parallel", "backend": backend, "world": world, "cards": cards,
+          "meshes": meshes, **out, "padded_shard": padded,
+          "kernel_success_rate": float(np.mean(main_ref["status"] == STATUS_REACHED)),
+          "seconds": time.perf_counter() - t_phase})
+    t_max = cfg.agent.max_steps
+    for tag, m in meshes.items():
+        n_lib = int(tag.split("x")[1])
+        require(m["same_k0"] >= 0.999, f"parallel {tag}: only {m['same_k0']:.5f} same first k")
+        require(m["max_rel_dfam0"] <= 1e-6, f"parallel {tag}: first-step fam off by "
+                f"{m['max_rel_dfam0']} (rtol 1e-6)")
+        rate = float(np.mean(main_ref["status"] == STATUS_REACHED))
+        require(abs(m["success_rate"] - rate) <= ACCURACY_BAND,
+                f"parallel {tag}: success {m['success_rate']} vs unsharded {rate}")
+        want = t_max if n_lib > 1 else 0
+        require(m["lib_pmin_by_rank"] == [want] * world,
+                f"parallel {tag}: MIN collectives per rank {m['lib_pmin_by_rank']}, want {want}")
+        for rank, counts in enumerate(m["launches_by_rank"]):
+            for name in MAIN_KERNELS:
+                require(counts[name] > 0, f"parallel {tag}: rank {rank} launched no {name}")
+    for r in results:
+        require(r["probe"]["same_best_heading"] >= 0.999,
+                f"parallel probe: only {r['probe']['same_best_heading']:.5f} same best heading")
+        require(abs(r["roll"]["success_rate"] - float(roll_ref["roll_success"])) <= ACCURACY_BAND_2,
+                f"parallel roll: success {r['roll']['success_rate']} vs {roll_ref['roll_success']}")
+        require(r["roll"]["same_k0"] >= 0.999, f"parallel roll: only {r['roll']['same_k0']:.5f}")
+        for key, rate in sweep_ref.items():
+            require(r["sweep"]["success_rate"][key] == rate,
+                    f"parallel sweep {key}: {r['sweep']['success_rate'][key]} vs serial {rate}")
+        require(r["sweep"]["resumed_cells"] == len(sweep_ref) == 8 and r["sweep"]["resumed_equal"],
+                "parallel sweep: the resumed run differs")
+        require(not any(r["sweep"]["resumed_launches"].values()),
+                f"parallel sweep: the resumed run launched {r['sweep']['resumed_launches']}")
+    return {name: sum(r["meshes"][f"{a}x{b}"]["launches"][name]
+                      for r in results for a, b in parallel_meshes(world))
+            for name in ops.launch_counts()}
+
+
+def launch_parallel_children(tmp: str, world: int) -> list[dict]:
+    """Start ``world`` ranks as torchrun would (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), each logging to a
+    file; fail, and stop them all, as soon as one exits non-zero or the
+    phase's time runs out. Returns each rank's JSON results."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
+               WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
+    procs, logs = [], []
+    try:
+        for r in range(world):
+            logs.append(open(Path(tmp) / f"rank{r}.log", "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--parallel-child", tmp],
+                env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=logs[-1],
+                stderr=subprocess.STDOUT))
+        deadline = time.perf_counter() + PARALLEL_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs):
+                break
+            if time.perf_counter() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    codes = [p.returncode for p in procs]
+    if codes != [0] * world:
+        for r in range(world):
+            tail = (Path(tmp) / f"rank{r}.log").read_text()[-3000:]
+            print(f"--- parallel rank {r} exited {codes[r]}:\n{tail}", file=sys.stderr)
+        raise AssertionError(f"parallel: ranks exited {codes}")
+    return [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def parallel_child(tmp: str) -> None:
+    """One rank of the parallel phase. Writes ``rank<r>.json``; prints no
+    result line."""
+    spec = json.loads((Path(tmp) / "spec.json").read_text())
+    timeout = datetime.timedelta(seconds=PARALLEL_GROUP_TIMEOUT_S)
+    if spec["backend"] == "nccl":
+        dev = init_distributed(timeout=timeout)
+    else:
+        dev = init_distributed(device="cuda:0", backend="gloo", timeout=timeout)
+    rank = dist.get_rank()
+    with np.load(Path(tmp) / "inputs.npz") as f:
+        ref = {k: f[k] for k in f.files}
+    cfg, land, route = slice_config()
+    lib = LibraryPack(*(torch.from_numpy(ref[f"lib_{k}"]) for k in LibraryPack._fields))
+    st = make_statics(land, lib, route, dev)
+    states0 = init_state(ref["starts"], ref["thetas"], dev)
+    ref_k = torch.from_numpy(ref["k"]).to(dev)
+    ref_fam = torch.from_numpy(ref["fam"]).to(dev)
+    ref_status = torch.from_numpy(ref["status"]).to(dev)
+    out = {"rank": rank, "device": str(dev), "meshes": {}}
+    meshes = {}
+    for nd, nl in spec["meshes"]:
+        mesh = meshes[(nd, nl)] = make_mesh(nd, nl)
+        st_m = shard_statics(st, mesh, shard_lib=nl > 1)
+        nav = make_navigate_sharded(cfg, mesh, "kernel", shard_lib=nl > 1)
+        nav(states0, st_m)  # warm-up
+        torch.cuda.synchronize()
+        dist.barrier()
+        ops.reset_launch_counts()
+        reset_collective_counts()
+        t0 = time.perf_counter()
+        final, rec = nav(states0, st_m)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, pmin = ops.launch_counts(), collective_counts()["lib_pmin"]
+        d0 = (rec.fam[:, 0].double() - ref_fam[:, 0].double()).abs()
+        coll_ms = None
+        if nl > 1:  # the step's MIN alone, on this rank's [B / n_data, L] minima
+            m = torch.zeros(BATCH // nd, len(scan_lag_sets(cfg.scan)[0]), device=dev)
+            torch.cuda.synchronize()
+            dist.barrier()
+            t1 = time.perf_counter()
+            for _ in range(cfg.agent.max_steps):
+                dist.all_reduce(m, op=dist.ReduceOp.MIN, group=mesh.lib_group)
+            torch.cuda.synchronize()
+            coll_ms = (time.perf_counter() - t1) / cfg.agent.max_steps * 1e3
+        out["meshes"][f"{nd}x{nl}"] = {
+            "episode_s": wall, "launches": launches, "lib_pmin": pmin,
+            "collective_ms_per_step": coll_ms,
+            "same_k0": float((rec.k[:, 0] == ref_k[:, 0]).float().mean()),
+            "max_rel_dfam0": float((d0 / ref_fam[:, 0].double().abs().clamp_min(1e-30)).max()),
+            "success_rate": float(success_rate(final)),
+            "bit_equal": {"k": bool(torch.equal(rec.k, ref_k)),
+                          "fam": bool(torch.equal(rec.fam, ref_fam)),
+                          "status": bool(torch.equal(final.status, ref_status))},
+        }
+    world = dist.get_world_size()
+    lib_mesh = meshes[(1, world)]
+
+    # the lib-axis probe at the trials' start poses (the lag phase's step 0)
+    probe = make_familiarity_probe(cfg, "kernel", lib_axis=lib_mesh.lib_group)
+    fam = probe(states0.xy, states0.theta, shard_statics(st, lib_mesh))
+    want = torch.from_numpy(ref["probe_fam"]).to(dev)
+    out["probe"] = {"poses": BATCH, "mesh": f"1x{world}",
+                    "same_best_heading": float((tie_k(fam, cfg.scan) == tie_k(want, cfg.scan))
+                                               .float().mean()),
+                    "max_abs_dfam": float((fam - want).abs().max())}
+
+    # config 2 on roll, the library split over every rank
+    cfg2, land2, route2 = bench_config(2, CONFIG2_VIEWS)
+    lib2 = LibraryPack(*(torch.from_numpy(ref[f"roll_lib_{k}"]) for k in LibraryPack._fields))
+    st2 = shard_statics(make_statics(land2, lib2, route2, dev), lib_mesh)
+    states2 = init_state(ref["roll_starts"], ref["roll_thetas"], dev)
+    nav = make_navigate_sharded(cfg2, lib_mesh, "roll")
+    aux = nav.prepare(st2)
+    nav(states2, st2, aux)  # warm-up
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    final, rec = nav(states2, st2, aux)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["roll"] = {"mesh": f"1x{world}", "batch": CONFIG2_BATCH, "library_views": CONFIG2_VIEWS,
+                   "success_rate": float(success_rate(final)), "episode_s": wall,
+                   "agent_steps_per_s": CONFIG2_BATCH * cfg2.agent.max_steps / wall,
+                   "same_k0": float((rec.k[:, 0].cpu().numpy() == ref["roll_k0"]).mean())}
+
+    # the default sweep's cells over the ranks, then resumed
+    _, land_s, route_s = bench_config(4, VIEWS)
+    sweep_dir = str(Path(tmp) / "sweep")
+    t0 = time.perf_counter()
+    res = run_sweep(land_s, route_s, SweepSpec(), sweep_dir, verbose=False, tensorboard=False,
+                    cells_mesh=meshes[(world, 1)])
+    sweep_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    again = run_sweep(land_s, route_s, SweepSpec(), sweep_dir, verbose=False, tensorboard=False,
+                      cells_mesh=meshes[(world, 1)])
+    out["sweep"] = {"mesh": f"{world}x1", "seconds": sweep_s,
+                    "success_rate": {k: float(v["success_rate"]) for k, v in res.items()},
+                    "group_size": {k: int(v["group_size"]) for k, v in res.items()},
+                    "resumed_cells": len(again),
+                    "resumed_equal": all(float(again[k]["success_rate"]) == float(v["success_rate"])
+                                         for k, v in res.items()),
+                    "resumed_launches": ops.launch_counts()}
+    (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 def run_golden() -> None:
     """The small parity world of the test suite: the port's own library and
     a one-agent episode on the card against the frozen float64 fixture, at
@@ -1368,10 +1689,32 @@ def run_golden() -> None:
     require(abs(n_steps - len(gold["xy"])) <= 5, "golden: step count off by more than 5")
 
 
-def main() -> int:
+def run_parallel_only(cfg, land, route) -> None:
+    """``--parallel-only``: the parallel phase and the phases it compares
+    against (main, roll, sweep), for a run on a host with several cards."""
+    st, states0, final, rec, _ = run_main_path(cfg, land, route)
+    main_ref = main_reference(cfg, st, states0, final, rec)
+    del st, states0, final, rec
+    _, st2, states2, res2 = run_roll()
+    roll_ref = roll_reference(st2, states2, res2)
+    del st2, states2, res2
+    torch.cuda.empty_cache()
+    run_parallel(main_ref, roll_ref, run_sweep_phase())
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="only the parallel phase and the main, roll and sweep phases it "
+                         "compares against; prints no kernels or ok line")
+    ap.add_argument("--parallel-child", metavar="DIR", help="run one rank of the parallel phase")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if args.parallel_child:
+        parallel_child(args.parallel_child)
+        return 0
     t_start = time.perf_counter()
     dev = resolve_device("cuda")  # also switches TF32 off for matmuls and convolutions
     card = card_line()
@@ -1382,6 +1725,11 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s, **check_build(logs)})
 
     cfg, land, route = slice_config()
+    if args.parallel_only:
+        run_parallel_only(cfg, land, route)
+        emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+        print(card, flush=True)
+        return 0
     t0 = time.perf_counter()
     results = check_kernels(cfg, dev)
     # what the two timers charge any launch: a kernel that does nothing
@@ -1394,6 +1742,7 @@ def main() -> int:
 
     st, states0, final, rec, counts = run_main_path(cfg, land, route)
     run_reference(cfg, st, states0, final, rec)
+    main_ref = main_reference(cfg, st, states0, final, rec)
     launches = {name: (n, "main") for name, n in counts.items()}
     poses = episode_poses(cfg, states0, rec)
     launches["lag_fam"] = (run_lag(cfg, st, poses), "lag phase")
@@ -1404,11 +1753,15 @@ def main() -> int:
     by_phase["infomax"] = run_infomax(cfg, st, states0, poses)
     del st, states0, final, rec, poses
     torch.cuda.empty_cache()
-    run_roll_knobs(*run_roll())
+    cfg2, st2, states2, res2 = run_roll()
+    roll_ref = roll_reference(st2, states2, res2)
+    run_roll_knobs(cfg2, st2, states2)
+    del st2, states2, res2
     run_checkpoint(sim)
     del sim
     torch.cuda.empty_cache()
-    run_sweep_phase()
+    sweep_ref = run_sweep_phase()
+    by_phase["parallel"] = run_parallel(main_ref, roll_ref, sweep_ref)
     by_phase["analysis"] = run_analysis(dev)
     run_golden()
 

@@ -25,6 +25,9 @@ Layer map:
      analysis    -> :mod:`navdv_torch.analysis`; plots -> :mod:`navdv_torch.viz`
                     (matplotlib, imported only by what plots);
                     ``python -m navdv_torch.cli demo|sweep|analyze``
+  over ranks     -> :mod:`navdv_torch.parallel` (torch.distributed: agents,
+                    library shards and sweep cells over processes)
+  profiling      -> :mod:`navdv_torch.utils.profiling`
 """
 
 from __future__ import annotations

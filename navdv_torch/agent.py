@@ -23,7 +23,10 @@ renderer and absorbs its roll in the spectra; every other path renders
 minimum over each heading's tolerance window and decides: tie-ordered
 argmin, kinematics, stop rules. The episode is a Python loop over
 ``max_steps`` with done-masking; nothing in it waits for the device unless
-``early_exit`` asks whether every agent is done. ``make_step``,
+``early_exit`` asks whether every agent is done. With ``lib_axis`` (a
+process group whose ranks hold one library shard each, as
+:mod:`navdv_torch.parallel` builds them) the per-lag minima are combined by
+:func:`lib_pmin` inside every step. ``make_step``,
 ``make_navigate``, ``navigate`` and ``step`` are one-agent wrappers over the
 batched step and loop.
 
@@ -38,6 +41,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from navdv_torch.config import SimConfig, choose_fam_impl
 from navdv_torch.device import as_tensor, resolve_device
@@ -140,6 +144,24 @@ def init_state(xy, theta, device=None) -> AgentState:
         done=torch.zeros(theta.shape, dtype=torch.bool, device=dev),
         status=torch.full(theta.shape, STATUS_RUNNING, dtype=torch.int32, device=dev),
     )
+
+
+def lib_pmin(m: torch.Tensor, lib_axis) -> torch.Tensor:
+    """The library shards' partial minima combined: ``all_reduce(MIN)`` over
+    the process group ``lib_axis`` (the JAX package's ``lax.pmin`` over its
+    ``lib`` mesh axis), the system's one collective. Every rank of the group
+    holds the same agents, so after it they hold the same minima and decide
+    alike. ``lib_axis=None`` (an unsharded library) returns ``m`` itself.
+    ``lib_pmin.calls`` counts the collectives issued."""
+    if lib_axis is None:
+        return m
+    m = m.contiguous()
+    dist.all_reduce(m, op=dist.ReduceOp.MIN, group=lib_axis)
+    lib_pmin.calls += 1
+    return m
+
+
+lib_pmin.calls = 0
 
 
 def point_to_polyline_dist(p: torch.Tensor, st: EpisodeStatics) -> torch.Tensor:
@@ -331,7 +353,8 @@ def _step_from_fam(fam_of, decide):
     return step
 
 
-def _make_sector_fam(cfg: SimConfig, lib_min, lags: np.ndarray, window_idx: torch.Tensor, dev):
+def _make_sector_fam(cfg: SimConfig, lib_min, lags: np.ndarray, window_idx: torch.Tensor, dev,
+                     lib_axis=None):
     """The spectral familiarity through the sector renderer (the JAX
     package's two sector branches): ``(fam_of(states, st, aux=None) ->
     [B, Nh], prepare(st) -> aux)``, aux = (library spectra, padded
@@ -383,14 +406,14 @@ def _make_sector_fam(cfg: SimConfig, lib_min, lags: np.ndarray, window_idx: torc
 
     def fam_of(states: AgentState, st: EpisodeStatics, aux=None) -> torch.Tensor:
         lib_aux, land_pad = prepare(st) if aux is None else aux
-        m = lag_min(land_pad, states, st.lib, lib_aux)  # [B, L]
+        m = lib_pmin(lag_min(land_pad, states, st.lib, lib_aux), lib_axis)  # [B, L]
         return torch.min(m[:, window_idx], dim=2).values  # [B, Nh]
 
     fam_of.fused = fused  # which front end the step runs, for probes
     return fam_of, prepare
 
 
-def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None):
+def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None, lib_axis=None):
     """Batched step: ``step(AgentState[B], EpisodeStatics, aux=None) ->
     (AgentState[B], StepRecord[B])``.
 
@@ -413,6 +436,12 @@ def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None):
     landscape, and ``step.fam.fused`` says whether it took the fused front
     end. ``step.fam`` exposes the pre-argmin familiarity
     ``fam_of(states, st, aux=None) -> [B, Nh]``.
+
+    ``lib_axis`` is a process group over which the library is sharded:
+    ``st.lib`` is this rank's shard, and the per-lag minima (conv: the
+    pooled familiarity, since the minimum commutes with the pooling) are
+    combined by :func:`lib_pmin` before the RIDF pool, at the JAX package's
+    four points.
     """
     dev = resolve_device(device)
     fam_impl = resolve_fam_impl(cfg, fam_impl)
@@ -426,7 +455,7 @@ def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None):
     # package, every other path renders "full" (numerically equivalent)
     if cfg.sensor.render_mode == "sector" and fam_impl == "fft":
         lib_min_fft = make_lib_min_fft(cfg.sensor, cfg.scan, lags, dev)
-        fam_of, prepare = _make_sector_fam(cfg, lib_min_fft, lags, window_idx_dev, dev)
+        fam_of, prepare = _make_sector_fam(cfg, lib_min_fft, lags, window_idx_dev, dev, lib_axis)
         step = _step_from_fam(fam_of, decide)
         step.lib_prepare = prepare
         return step
@@ -435,7 +464,8 @@ def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None):
         fam_conv = make_fam_conv(cfg.sensor, cfg.scan, dev)
 
         def fam_of(states: AgentState, st: EpisodeStatics, aux=None) -> torch.Tensor:
-            return fam_conv(render_b(st.landscape, states.xy, states.theta), st.lib)
+            fam = fam_conv(render_b(st.landscape, states.xy, states.theta), st.lib)
+            return lib_pmin(fam, lib_axis)  # the minimum commutes with the pooling
 
         step = _step_from_fam(fam_of, decide)
         step.lib_prepare = None
@@ -453,7 +483,7 @@ def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None):
             lag_sum = lag_sq = None
             if stats is not None:
                 lag_sum, lag_sq = stats(s.double())  # [B, L] each
-            m = lib_min_s(s, st.lib, lag_sum, lag_sq, aux)  # [B, L]
+            m = lib_pmin(lib_min_s(s, st.lib, lag_sum, lag_sq, aux), lib_axis)  # [B, L]
             return torch.min(m[:, window_idx_dev], dim=2).values  # [B, Nh]
 
         step = _step_from_fam(fam_of, decide)
@@ -495,6 +525,7 @@ def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None):
             for lo, hi, v in chunk_views
         ]
         m = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)  # [B, L]
+        m = lib_pmin(m, lib_axis)
         return torch.min(m[:, window_idx_dev], dim=2).values  # [B, Nh]
 
     step = _step_from_fam(fam_of, decide)
@@ -504,7 +535,8 @@ def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None):
 
 
 def make_navigate_batch(
-    cfg: SimConfig, fam_impl: str = "kernel", early_exit: bool = False, device=None
+    cfg: SimConfig, fam_impl: str = "kernel", early_exit: bool = False, device=None,
+    lib_axis=None,
 ):
     """Batched trials: ``run(states0, statics, aux=None) -> (final[B],
     StepRecord[B, T])``.
@@ -519,9 +551,13 @@ def make_navigate_batch(
     once with ``run.prepare(statics)`` and pass them as ``aux``; otherwise
     each call prepares them once. ``run.prepare`` is None for paths with no
     prepare stage (``"kernel"``, ``"plain"``, ``"conv"``).
+
+    ``lib_axis``: see :func:`make_step_batched`. Every rank of the group
+    holds the same agents and, after the step's collective, the same
+    minima, so under ``early_exit`` they stop at the same step.
     """
     dev = resolve_device(device)
-    step = make_step_batched(cfg, fam_impl, dev)
+    step = make_step_batched(cfg, fam_impl, dev, lib_axis)
     t_max = cfg.agent.max_steps
     lib_prepare = step.lib_prepare
 
@@ -557,12 +593,12 @@ def make_navigate_batch(
     return run
 
 
-def make_step(cfg: SimConfig, fam_impl: str = "kernel", device=None):
+def make_step(cfg: SimConfig, fam_impl: str = "kernel", device=None, lib_axis=None):
     """Single-agent step ``step(AgentState, EpisodeStatics, aux=None) ->
     (state', StepRecord)``: the batched step on a batch of one (for parity
     checks and debugging). ``"kernel"`` is the port's name for the JAX
     default ``"jnp"``."""
-    batched = make_step_batched(cfg, fam_impl, device)
+    batched = make_step_batched(cfg, fam_impl, device, lib_axis)
 
     def step(state: AgentState, st: EpisodeStatics, aux=None):
         out, rec = batched(AgentState(*(x[None] for x in state)), st, aux)

@@ -14,8 +14,8 @@ Both probe the step's own familiarity stage (``step.fam`` of
 RIDF pooling), so what is plotted is what the agent computes on every
 ``fam_impl``, the learned infomax memory included. A map is one batched
 familiarity evaluation per ``batch`` positions: grid cells play the part
-of agents. A library sharded over devices (``lib_axis``) waits for
-ROADMAP A.17.
+of agents. A probe with ``lib_axis`` scores this rank's library shard and
+combines the shards' minima as the step does (:mod:`navdv_torch.parallel`).
 """
 
 from __future__ import annotations
@@ -42,9 +42,6 @@ __all__ = [
     "heading_error",
 ]
 
-_MESH = "ROADMAP A.17 (parallelism)"
-
-
 def full_circle_scan(cfg: SimConfig) -> SimConfig:
     """``cfg`` with the heading scan widened to the full azimuth circle: one
     candidate per fine bin (``n_headings = n_fine``, ``scan_step_bins = 1``)
@@ -56,8 +53,8 @@ def full_circle_scan(cfg: SimConfig) -> SimConfig:
     return dataclasses.replace(cfg, scan=scan)
 
 
-def make_familiarity_probe(cfg: SimConfig, fam_impl: str = "auto",
-                           lib_axis: str | None = None, device=None):
+def make_familiarity_probe(cfg: SimConfig, fam_impl: str = "auto", lib_axis=None,
+                           device=None):
     """Batched familiarity probe over the step's pipeline.
 
     Returns ``probe(xy[B, 2], theta[B], st, aux=None) -> fam f32[B, Nh]``
@@ -74,17 +71,18 @@ def make_familiarity_probe(cfg: SimConfig, fam_impl: str = "auto",
     - ``probe.fused``: whether the sector branch took the fused front end
       (``step.fam.fused``; False off the sector renderer).
 
-    Probes are cached on ``(cfg, fam_impl, device)``. ``lib_axis`` names a
-    library-sharded axis in the JAX package; the port raises for it until
-    ROADMAP A.17."""
-    if lib_axis is not None:
-        raise NotImplementedError(f"library-sharded probes are not ported yet: {_MESH}")
-    return _make_familiarity_probe(cfg, fam_impl, resolve_device(device))
+    ``lib_axis`` is a process group over which the library is sharded, as
+    in :func:`navdv_torch.agent.make_step_batched`: ``st`` is then this
+    rank's shard (:func:`navdv_torch.parallel.shard_statics`), every rank of
+    the group probes the same poses, and each gets the familiarity over the
+    whole library. Probes are cached on ``(cfg, fam_impl, device,
+    lib_axis)``."""
+    return _make_familiarity_probe(cfg, fam_impl, resolve_device(device), lib_axis)
 
 
 @functools.lru_cache(maxsize=32)
-def _make_familiarity_probe(cfg: SimConfig, fam_impl: str, dev: torch.device):
-    step = make_step_batched(cfg, fam_impl, dev)
+def _make_familiarity_probe(cfg: SimConfig, fam_impl: str, dev: torch.device, lib_axis):
+    step = make_step_batched(cfg, fam_impl, dev, lib_axis)
     fam_of = step.fam
     shifts, _ = scan_shift_sets(cfg.scan)
     tie_order = torch.as_tensor(cfg.scan.tie_order(), dtype=torch.long, device=dev)

@@ -123,12 +123,36 @@ def cmd_bench(args) -> None:
 
 
 def cmd_sweep(args) -> None:
+    """The grid in this process, or with ``--cells-mesh N`` its cells spread
+    over N ranks (one process each, under torchrun), where rank 0 writes the
+    files and the kernel recall check is off, as in the JAX package."""
+    if not args.cells_mesh:
+        _sweep(args)
+        return
+    import torch.distributed as dist
+
+    from navdv_torch.parallel import init_distributed, make_mesh
+
+    owned = not dist.is_initialized()
+    dev = init_distributed(device=args.device)
+    try:
+        world = dist.get_world_size()
+        if world != args.cells_mesh:
+            print(f"--cells-mesh {args.cells_mesh} needs one process per rank and this world "
+                  f"has {world}: run it as torchrun --nproc-per-node {args.cells_mesh} "
+                  "-m navdv_torch.cli sweep ...", file=sys.stderr)
+            raise SystemExit(2)
+        _sweep(args, make_mesh(args.cells_mesh, 1, device=dev))
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def _sweep(args, cells_mesh=None) -> None:
     from navdv_torch import viz
     from navdv_torch.config import SimConfig
     from navdv_torch.sweep import SweepSpec, run_sweep
 
-    if args.cells_mesh:
-        raise NotImplementedError("--cells-mesh is not ported yet: ROADMAP A.17 (parallelism)")
     landscape = _load_world(args, (args.size, args.size))
     route = _cli_route(args, landscape.shape)
     # budget in steps: arc length / step size (the cells run the spec's
@@ -148,7 +172,11 @@ def cmd_sweep(args) -> None:
         i, n = args.shard.split("/")
         shard = (int(i), int(n))
     results = run_sweep(landscape, route, spec, args.out, fam_impl=args.impl, shard=shard,
-                        recall_check_trials=args.recall_check, device=args.device)
+                        cells_mesh=cells_mesh,
+                        recall_check_trials=0 if cells_mesh is not None else args.recall_check,
+                        device=args.device)
+    if cells_mesh is not None and cells_mesh.data_index != 0:
+        return
     viz.plot_sweep_heatmap(results, "scan", "px", os.path.join(args.out, "success_heatmap.png"))
     print(f"sweep complete: {len(results)} cells -> {args.out}/summary.json")
 
@@ -233,7 +261,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="trial-randomization seed (default: --seed, which also "
                         "seeds the landscape)")
     s.add_argument("--cells-mesh", type=int, default=0, metavar="N",
-                   help="not ported: cells over N devices wait for ROADMAP A.17")
+                   help="spread the cells over N ranks, one process each: run under "
+                        "torchrun --nproc-per-node N (0 = this process alone)")
     s.add_argument("--lib-bucket", type=int, default=0,
                    help="pad libraries to a multiple of this many views so "
                         "spacing-only cells share one navigate function "

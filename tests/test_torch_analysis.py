@@ -313,10 +313,27 @@ def test_probe_cache_and_best(world):
 
 
 def test_probe_lib_axis_raises_naming_a17(world):
-    """A library-sharded probe (the JAX ``lib_axis``) waits for ROADMAP A.17."""
-    cfg, *_ = world
-    with pytest.raises(NotImplementedError, match="A.17"):
-        make_familiarity_probe(cfg, "kernel", lib_axis="lib", device=CPU)
+    """A lib-axis probe in one process, over a group of one rank, equals the
+    plain probe (the multi-rank probe is in tests/test_torch_parallel.py),
+    and is cached apart from it."""
+    import torch.distributed as dist
+
+    from navdv_torch.parallel import init_distributed, make_mesh, shard_statics
+
+    cfg, landscape, route, lib, st = world
+    pts, headings = oracle.resample_route(route, cfg.capture_spacing)
+    xy = np.asarray(pts)[[1, 2]]
+    th = np.asarray(headings)[[1, 2]] + 0.05
+    init_distributed(device=CPU)
+    try:
+        mesh = make_mesh(1, 1, device=CPU)
+        probe = make_familiarity_probe(cfg, "kernel", lib_axis=mesh.lib_group, device=CPU)
+        ref = make_familiarity_probe(cfg, "kernel", device=CPU)
+        assert probe is not ref
+        got = probe(xy, th, shard_statics(st, mesh))
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got, ref(xy, th, st))
 
 
 def test_probe_best_production_tie_break(small_cfg):

@@ -92,7 +92,8 @@ def test_landscapes_routes_trials_bitwise(kind, seed, kw):
 
 def _port_sources():
     scripts = ("chip_smoke.py", "chip_profile.py", "decision_precision.py",
-               "examples/quickstart_torch.py", "examples/learned_memory_torch.py")
+               "examples/quickstart_torch.py", "examples/learned_memory_torch.py",
+               "examples/mesh_sweep_torch.py")
     files = [os.path.join(REPO, f) for f in scripts]
     for root, _, names in os.walk(os.path.join(REPO, "navdv_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
@@ -115,7 +116,8 @@ def test_port_imports_no_jax():
                 continue
             assert not [n for n in names if n.split(".")[0] in banned], (path, names)
     code = (
-        "import sys, navdv_torch, navdv_torch.convert\n"
+        "import sys, navdv_torch, navdv_torch.convert, navdv_torch.parallel\n"
+        "import navdv_torch.utils.profiling\n"
         "import chip_smoke, chip_profile, decision_precision\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {banned!r})\n"
         "print(bad)\n"

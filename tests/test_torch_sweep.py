@@ -189,14 +189,25 @@ def test_auto_impl_resolution():
 
 @pytest.mark.parametrize("kw", ["mesh", "cells_mesh"])
 def test_mesh_sweeps_raise_naming_a17(small_world, small_cfg, tmp_path, kw):
+    """A mesh is a ``navdv_torch.parallel.Mesh``: anything else raises before
+    a cell runs, as do ``mesh`` with ``cells_mesh`` and a recall check with
+    ``cells_mesh`` (the multi-rank runs are in tests/test_torch_parallel.py)."""
     landscape, route = small_world
-    with pytest.raises(NotImplementedError, match="A.17"):
+    with pytest.raises(TypeError, match="make_mesh"):
         sweep.run_sweep(landscape, route, _tiny_spec(), str(tmp_path), device="cpu",
                         **{kw: object()})
     if kw == "mesh":
-        with pytest.raises(NotImplementedError, match="A.17"):
+        with pytest.raises(TypeError, match="make_mesh"):
             sweep.run_cell(landscape, route, config_from(small_cfg), 4, 0, mesh=object(),
                            device="cpu")
+    else:
+        with pytest.raises(ValueError, match="not both"):
+            sweep.run_sweep(landscape, route, _tiny_spec(), str(tmp_path), device="cpu",
+                            mesh=object(), cells_mesh=object())
+        with pytest.raises(ValueError, match="recall_check_trials"):
+            sweep.run_sweep(landscape, route, _tiny_spec(), str(tmp_path), device="cpu",
+                            cells_mesh=object(), recall_check_trials=4)
+    assert not os.listdir(tmp_path)
 
 
 def test_infomax_cells_raise_naming_a13(small_cfg, small_world):

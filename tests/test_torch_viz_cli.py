@@ -170,7 +170,15 @@ def test_cli_refuses_what_is_not_ported(argv, code, match, capsys):
     assert match in capsys.readouterr().err
 
 
-def test_cli_cells_mesh_raises_naming_a17(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.17"):
+def test_cli_cells_mesh_raises_naming_a17(tmp_path, capsys):
+    """``--cells-mesh 2`` in a world of one rank exits naming the torchrun
+    line that starts two, runs no cell and leaves no process group."""
+    import torch.distributed as dist
+
+    with pytest.raises(SystemExit) as e:
         main(["sweep", "--size", "128", "--cells-mesh", "2", "--out", str(tmp_path),
               "--device", "cpu"])
+    assert e.value.code == 2
+    assert "torchrun --nproc-per-node 2" in capsys.readouterr().err
+    assert not dist.is_initialized()
+    assert not os.listdir(tmp_path)
