@@ -132,8 +132,6 @@ Phases, one JSON line each:
             cell's success equal to the sweep phase's, then resumed with no
             launch. Reported: each mesh's episode seconds (the slowest
             rank's) and agent-steps/s, and the MIN's time per step alone.
-            ``--parallel-only`` runs this phase and the main, roll and sweep
-            phases it compares against, and prints no kernels or ok line.
 
 Every phase line carries its ``seconds``. Then the card line, the kernels
 line (with each kernel's ``launches_by_phase``: main, lag, conv, infomax,
@@ -1689,24 +1687,8 @@ def run_golden() -> None:
     require(abs(n_steps - len(gold["xy"])) <= 5, "golden: step count off by more than 5")
 
 
-def run_parallel_only(cfg, land, route) -> None:
-    """``--parallel-only``: the parallel phase and the phases it compares
-    against (main, roll, sweep), for a run on a host with several cards."""
-    st, states0, final, rec, _ = run_main_path(cfg, land, route)
-    main_ref = main_reference(cfg, st, states0, final, rec)
-    del st, states0, final, rec
-    _, st2, states2, res2 = run_roll()
-    roll_ref = roll_reference(st2, states2, res2)
-    del st2, states2, res2
-    torch.cuda.empty_cache()
-    run_parallel(main_ref, roll_ref, run_sweep_phase())
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parallel-only", action="store_true",
-                    help="only the parallel phase and the main, roll and sweep phases it "
-                         "compares against; prints no kernels or ok line")
     ap.add_argument("--parallel-child", metavar="DIR", help="run one rank of the parallel phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1725,11 +1707,6 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": build_s, **check_build(logs)})
 
     cfg, land, route = slice_config()
-    if args.parallel_only:
-        run_parallel_only(cfg, land, route)
-        emit({"phase": "done", "seconds": time.perf_counter() - t_start})
-        print(card, flush=True)
-        return 0
     t0 = time.perf_counter()
     results = check_kernels(cfg, dev)
     # what the two timers charge any launch: a kernel that does nothing

@@ -16,6 +16,10 @@ or on the CPU with gloo::
 
     torchrun --nproc-per-node 2 examples/mesh_sweep_torch.py --device cpu
 
+or with more ranks than cards, sharing them over gloo::
+
+    torchrun --nproc-per-node 2 examples/mesh_sweep_torch.py --backend gloo
+
 ``--out`` defaults to ``navdv_torch_mesh_sweep`` in the system's temporary
 directory.
 """
@@ -39,9 +43,12 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(tempfile.gettempdir(), "navdv_torch_mesh_sweep"))
     ap.add_argument("--device", default=None, help="'cuda' (the default, a card per rank) or 'cpu'")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="default: NCCL with a card per rank, gloo on the CPU; "
+                         "gloo lets more ranks than cards share them")
     args = ap.parse_args()
 
-    device = init_distributed(device=args.device)
+    device = init_distributed(device=args.device, backend=args.backend)
     try:
         mesh = global_mesh(n_lib=1, device=device)
         rank0 = dist.get_rank() == 0

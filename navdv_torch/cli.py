@@ -134,7 +134,7 @@ def cmd_sweep(args) -> None:
     from navdv_torch.parallel import init_distributed, make_mesh
 
     owned = not dist.is_initialized()
-    dev = init_distributed(device=args.device)
+    dev = init_distributed(device=args.device, backend=args.backend)
     try:
         world = dist.get_world_size()
         if world != args.cells_mesh:
@@ -263,6 +263,9 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--cells-mesh", type=int, default=0, metavar="N",
                    help="spread the cells over N ranks, one process each: run under "
                         "torchrun --nproc-per-node N (0 = this process alone)")
+    s.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                   help="process-group backend for --cells-mesh (default: NCCL with a "
+                        "card per rank, gloo on --device cpu; gloo lets ranks share a card)")
     s.add_argument("--lib-bucket", type=int, default=0,
                    help="pad libraries to a multiple of this many views so "
                         "spacing-only cells share one navigate function "

@@ -78,7 +78,8 @@ def init_distributed(device=None, backend: str | None = None, **kwargs) -> torch
     """Join (or, alone, form) the default process group; returns this
     rank's device.
 
-    A no-op, save for choosing the device, when the group exists. Under a
+    A no-op, save for choosing the device, when the group exists; its
+    backend then stands for ``backend=None``. Under a
     launcher (torchrun sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
     ``MASTER_ADDR``, ``MASTER_PORT``) the group comes from those variables;
     with none of them it is a group of one rank on a free localhost port,
@@ -90,10 +91,10 @@ def init_distributed(device=None, backend: str | None = None, **kwargs) -> torch
     variable present the error says so, since carrying on alone there would
     run the whole workload once per process.
     """
-    dev, backend = _rank_device(device, backend)
     if dist.is_initialized():
         logger.info("torch.distributed already initialized; skipping")
-        return dev
+        return _rank_device(device, backend or dist.get_backend())[0]
+    dev, backend = _rank_device(device, backend)
     cluster_env = [v for v in _CLUSTER_ENV if os.environ.get(v)]
     asked = sorted(kwargs)
     kwargs.setdefault("timeout", datetime.timedelta(seconds=INIT_TIMEOUT_S))

@@ -212,6 +212,23 @@ def test_backend_is_never_switched_silently(monkeypatch):
         distributed.init_distributed(device="cpu", backend="nccl")
 
 
+def test_existing_group_backend_stands_for_none(one_rank, monkeypatch):
+    """Re-entry with ``backend=None`` takes the group's backend: two local
+    ranks sharing one card under an existing gloo group get the card, where
+    forming a group would raise naming gloo."""
+    from navdv_torch.parallel import distributed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda dev: None)
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    assert dist.get_backend() == "gloo"
+    assert distributed.init_distributed() == torch.device("cuda", 0)
+    with pytest.raises(ValueError, match="use gloo"):
+        distributed.init_distributed(device="cpu", backend="nccl")
+
+
 def test_mesh_needs_a_process_group():
     from navdv_torch.parallel import global_mesh, make_mesh
 

@@ -56,6 +56,11 @@ def _episode(final, rec) -> dict:
     return {**{f"final_{k}": v for k, v in final._asdict().items()}, **rec._asdict()}
 
 
+def _cell(res: dict) -> dict:
+    """A sweep cell's aggregates, without its wall times."""
+    return {k: v for k, v in res.items() if k not in ("wall_s", "warmup_s", "agent_steps_per_s")}
+
+
 def _tiny_spec(**kw):
     from navdv_torch.sweep import SweepSpec
 
@@ -107,6 +112,14 @@ def child(out_dir: str) -> None:
 
     for impl in IMPLS:
         out[f"ref_{impl}"] = _episode(*unsharded(impl))
+    if world == 2:  # the sweep cells' unsharded references
+        out["cell_kernel_ref"] = _cell(run_cell(land, route, cfg, n_trials=B, seed=0,
+                                                fam_impl="kernel", device="cpu"))
+        out["cell_kernel4_ref"] = _cell(run_cell(land, route, cfg, n_trials=4, seed=0,
+                                                 fam_impl="kernel", device="cpu"))
+        out["cell_infomax_ref"] = _cell(run_cell(land, route, cfg, n_trials=4, seed=0,
+                                                 fam_impl="infomax", recall_check_trials=4,
+                                                 device="cpu"))
     for shape in MESHES[world]:
         mesh = make_mesh(*shape, device="cpu")
         tag = f"{shape[0]}x{shape[1]}"
@@ -142,14 +155,11 @@ def child(out_dir: str) -> None:
             out["probe_sharded"] = probe(xy, th, st_m)
             out["probe_ref"] = make_familiarity_probe(cfg, "kernel", device="cpu")(xy, th, st)
             # sweep cells spanning the mesh: the default path and infomax
-            res = run_cell(land, route, cfg, n_trials=B, seed=0, fam_impl="kernel", mesh=mesh,
-                           device="cpu")
-            out["cell_kernel"] = {k: res[k] for k in ("status_counts", "success_rate",
-                                                      "n_library_padded", "n_library_views")}
-            res = run_cell(land, route, cfg, n_trials=4, seed=0, fam_impl="infomax", mesh=mesh,
-                           recall_check_trials=4)
-            out["cell_infomax"] = {k: res[k] for k in ("success_rate", "n_library_padded",
-                                                       "success_rate_jnp", "status_counts")}
+            out["cell_kernel_1x2"] = _cell(run_cell(land, route, cfg, n_trials=B, seed=0,
+                                                    fam_impl="kernel", mesh=mesh, device="cpu"))
+            out["cell_infomax"] = _cell(run_cell(land, route, cfg, n_trials=4, seed=0,
+                                                 fam_impl="infomax", mesh=mesh,
+                                                 recall_check_trials=4))
             try:
                 make_navigate_cells(cfg, mesh, "kernel")
             except ValueError as e:
@@ -174,6 +184,9 @@ def child(out_dir: str) -> None:
                     AgentState(*(x[:3] for x in states0)), st_m)
             except ValueError as e:
                 out["batch_error"] = str(e)
+            # a sweep cell with its trials split over the data axis
+            out["cell_kernel_2x1"] = _cell(run_cell(land, route, cfg, n_trials=B, seed=0,
+                                                    fam_impl="kernel", mesh=mesh, device="cpu"))
             # data-parallel infomax: the network replicates, bit for bit
             nav = make_navigate_sharded(cfg, mesh, "infomax", shard_lib=False)
             out["infomax_dp"] = _episode(*nav(states0, st_m))
@@ -468,26 +481,65 @@ def test_probe_lib_axis_min(w2):
         assert r["probe_sharded"].shape == (3, 12)
 
 
-def test_sweep_cell_on_mesh(w2):
-    """One cell spanning the (1, 2) mesh: every trial accounted for, the
-    library padded to the lib axis and recorded so."""
+def _assert_cells_equal(got: dict, want: dict, skip=()):
+    assert set(got) == set(want)
+    for k in want:
+        if k not in skip:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("tag", ["2x1", "1x2"])
+def test_sweep_cell_on_mesh(w2, tag):
+    """One cell spanning the mesh (its trials split over the data axis, or
+    its library over the lib axis) against the same cell in one process:
+    every aggregate equal, and the library recorded padded to the lib axis."""
+    want = w2[0]["cell_kernel_ref"]
     for r in w2:
-        c = r["cell_kernel"]
+        c = r[f"cell_kernel_{tag}"]
+        _assert_cells_equal(c, want, skip=("n_library_padded",))
         assert int(c["status_counts"].sum()) == B
-        assert 0.0 <= float(c["success_rate"]) <= 1.0
-        nl = int(c["n_library_views"])
-        assert int(c["n_library_padded"]) == nl + nl % 2
-    assert float(w2[0]["cell_kernel"]["success_rate"]) == float(w2[1]["cell_kernel"]["success_rate"])
+        nl, n_lib = int(c["n_library_views"]), int(tag[-1])
+        assert int(c["n_library_padded"]) == -(-nl // n_lib) * n_lib
+
+
+@pytest.fixture(scope="module")
+def jax_cells(inputs):
+    """JAX run_cell ("jnp") on the 8-device CPU mesh at the (2, 1) and (1, 2)
+    meshes of the 2-rank job, on the same world, trials and seed."""
+    from navdv_tpu.parallel.mesh import make_mesh
+    from navdv_tpu.sweep import run_cell
+
+    cfg, _, a = inputs
+    return {f"{nd}x{nl}": run_cell(a["landscape"], a["route"], cfg, n_trials=B, seed=0,
+                                   fam_impl="jnp", mesh=make_mesh(nd, nl))
+            for nd, nl in MESHES[2]}
+
+
+@pytest.mark.parametrize("tag", ["2x1", "1x2"])
+def test_sweep_cell_on_mesh_matches_jax(w2, jax_cells, tag):
+    """The port's mesh cell against JAX run_cell on the same mesh, at the
+    tolerance the port's sweep holds against JAX's (test_torch_sweep.py
+    ``test_sweep_matches_jax_sweep``): the same success, statuses and
+    library sizes, mean path error within 1e-4."""
+    got, want = w2[0][f"cell_kernel_{tag}"], jax_cells[tag]
+    for name in ("success_rate", "status_counts", "n_library_views", "n_library_padded",
+                 "n_trials"):
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    np.testing.assert_allclose(got["mean_path_error"], want["mean_path_error"], atol=1e-4)
 
 
 def test_run_cell_infomax_on_lib_sharded_mesh(w2):
     """An infomax cell on a mesh with a lib axis replicates its library
-    instead of failing, and its kernel recall check runs unsharded."""
+    instead of failing: every aggregate equals the cell in one process, and
+    its kernel recall check, run on the unsharded statics, equals the kernel
+    cell of the same first 4 trials."""
+    want = w2[0]["cell_infomax_ref"]
     for r in w2:
         c = r["cell_infomax"]
-        assert 0.0 <= float(c["success_rate"]) <= 1.0
+        _assert_cells_equal(c, want)
+        assert int(c["n_library_padded"]) == int(c["n_library_views"])
         assert int(c["status_counts"].sum()) == 4
-        assert 0.0 <= float(c["success_rate_jnp"]) <= 1.0
+        assert float(c["success_rate_jnp"]) == float(r["cell_kernel4_ref"]["success_rate"])
 
 
 def test_navigate_cells_rejects_misuse(w2):

@@ -182,3 +182,15 @@ def test_cli_cells_mesh_raises_naming_a17(tmp_path, capsys):
     assert "torchrun --nproc-per-node 2" in capsys.readouterr().err
     assert not dist.is_initialized()
     assert not os.listdir(tmp_path)
+
+
+def test_cli_cells_mesh_passes_its_backend(tmp_path):
+    """``--backend`` reaches ``init_distributed``: NCCL on the CPU is
+    refused there, before any group forms or any cell runs."""
+    import torch.distributed as dist
+
+    with pytest.raises(ValueError, match="use gloo"):
+        main(["sweep", "--size", "128", "--cells-mesh", "2", "--out", str(tmp_path),
+              "--device", "cpu", "--backend", "nccl"])
+    assert not dist.is_initialized()
+    assert not os.listdir(tmp_path)
