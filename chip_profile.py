@@ -1,6 +1,6 @@
 """Where one episode of the port spends its time on the card.
 
-    python3 chip_profile.py [--fam-impl kernel|fft|roll|conv|infomax] [--config 1|2|3|4]
+    python3 chip_profile.py [--fam-impl kernel|fft|roll|conv|infomax] [--config 1|2|3|4] [--eager]
 
 The cells are those ``chip_smoke.py`` drives: configs 1 and 4 (50 views,
 1024 agents), config 2 (500 views, 512 agents) and config 3 (50 views, 256
@@ -9,16 +9,19 @@ other paths clear the knobs only ``fft`` reads (``chip_smoke.exact_cfg``).
 ``--config`` defaults to the cell each path ships for: 4 for ``kernel``
 (the default), ``fft`` and ``conv``, 2 for ``roll``, 1 for ``infomax``
 (whose prepare stage, the network's training, runs once before the
-timed episodes). Trains
-the library, prepares its per-library constants once (as
-``NavigationSimulator`` does), warms the episode up, times three plain
-episodes (host clock around work that ends in a synchronize), then runs one
-more under ``navdv_torch.utils.profiling.trace`` and prints one JSON line:
-the episode's wall time, the device time summed by kernel name
-(``top_ops``), and the device's idle share (1 - summed kernel time /
-profiled wall time; one stream, so kernels never overlap). The Chrome trace
-goes to ``build/traces/``. Exits non-zero without a card or when the
-profiler records no device activity.
+timed episodes). Trains the library, prepares its per-library constants
+once (as ``NavigationSimulator`` does), warms the episode up (which
+captures it), times three plain episodes (host clock around work that ends
+in a synchronize), then runs one more under
+``navdv_torch.utils.profiling.trace`` and prints one JSON line: the
+episode's wall time, the device time summed by kernel name (``top_ops``),
+and the device's idle share (1 - summed kernel time / profiled wall time;
+one stream, so kernels never overlap), also against the unprofiled
+episodes' median wall time, since tracing slows the host. The Chrome trace
+goes to ``build/traces/``. The episode is ``make_navigate_batch``'s,
+replayed as CUDA graphs; ``--eager`` profiles ``make_navigate_batch_fn``'s
+instead, launched op by op from the host. Exits non-zero without a card or
+when the profiler records no device activity.
 """
 
 from __future__ import annotations
@@ -42,7 +45,12 @@ from chip_smoke import (
     card_line,
     exact_cfg,
 )
-from navdv_torch.agent import init_state, make_navigate_batch, make_statics
+from navdv_torch.agent import (
+    init_state,
+    make_navigate_batch,
+    make_navigate_batch_fn,
+    make_statics,
+)
 from navdv_torch.metrics import success_rate
 from navdv_torch.training import train_library
 from navdv_torch.trials import make_trials
@@ -67,6 +75,8 @@ def main() -> int:
     parser.add_argument("--fam-impl", choices=("kernel", "fft", "roll", "conv", "infomax"),
                         default="kernel")
     parser.add_argument("--config", type=int, choices=(1, 2, 3, 4), default=None)
+    parser.add_argument("--eager", action="store_true",
+                        help="profile the eager episode instead of the captured one")
     args = parser.parse_args()
     config = args.config or {"roll": 2, "infomax": 1}.get(args.fam_impl, 4)
     if not torch.cuda.is_available():
@@ -77,8 +87,9 @@ def main() -> int:
     st = make_statics(land, lib, route)
     starts, thetas = make_trials(route, cfg, batch, seed=0)
     states0 = init_state(starts, thetas)
-    run = make_navigate_batch(cfg, fam_impl=args.fam_impl)
-    aux = None if run.prepare is None else run.prepare(st)
+    run = (make_navigate_batch_fn if args.eager else make_navigate_batch)(cfg, args.fam_impl)
+    prepare = run.lib_prepare if args.eager else run.prepare
+    aux = None if prepare is None else prepare(st)
     rate = float(success_rate(run(states0, st, aux)[0]))  # warm-up
 
     walls = []
@@ -105,12 +116,14 @@ def main() -> int:
     steps = cfg.agent.max_steps
     print(json.dumps({
         "phase": "profile", "card": card_line(), "fam_impl": args.fam_impl, "config": config,
+        "episode": "eager" if args.eager else "captured",
         "library_views": int(lib.views.shape[0]), "batch": batch, "max_steps": steps,
         "success_rate": rate, "episode_s": walls, "episode_s_median": float(np.median(walls)),
         "agent_steps_per_s": batch * steps / float(np.median(walls)),
         "profiled_episode_s": prof_wall, "device_busy_ms": busy_ms,
         "device_ms_per_step": busy_ms / steps,
         "device_idle_share": 1.0 - busy_ms / (prof_wall * 1e3),
+        "device_idle_share_unprofiled": 1.0 - busy_ms / (float(np.median(walls)) * 1e3),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "kernels": [{"name": r["op"][:80], "ms": r["self_us"] / 1e3, "count": r["count"],
                      "ms_per_step": r["self_us"] / 1e3 / steps} for r in rows[:15]],

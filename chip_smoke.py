@@ -132,6 +132,30 @@ Phases, one JSON line each:
             cell's success equal to the sweep phase's, then resumed with no
             launch. Reported: each mesh's episode seconds (the slowest
             rank's) and agent-steps/s, and the MIN's time per step alone.
+            Each mesh's run must replay CUDA graphs unless its lib group is
+            on gloo, and each rank's slice must equal the eager episode's
+            (``make_navigate_batch_fn``) bit for bit;
+18. graphs — (last) the JAX package's compiled programs as CUDA graphs
+            (``navdv_torch/capture.py``), each against its eager
+            counterpart on the same inputs: one window-gather launch, then
+            ``make_navigate_batch`` against ``make_navigate_batch_fn`` on
+            config 4 ``kernel`` (cutoff 0), config 4 ``fft`` as shipped,
+            config 2 ``roll`` (500 views, 512 agents), config 3 on the
+            fused sector path (256 agents), config 4 ``conv`` and config 1
+            ``infomax``, whose training (AUTO dose) must give the eager
+            loop's W bit for bit; the default sweep's first cell (256
+            trials, 256 steps) with early exit at every chunk size of
+            GRAPH_CHUNKS; config 1's stride-8 familiarity map on
+            ``kernel`` (captured ``probe.best`` against ``probe.best.eager``).
+            Each must give bit-equal final states and records (and map),
+            equal launch counts (under early exit, the captured chunks also
+            launch their masked steps: per step x chunks x chunk size), and
+            leave a result held from its first call unchanged. Reported:
+            each episode's wall time, eager and captured, the training
+            seconds, and per chunk size the early exit's time (median and
+            quartiles of CHUNK_ROUNDS runs, the chunk sizes in round robin).
+            The earlier phases already run captured episodes, so their
+            launch counts are replays' counts.
 
 Every phase line carries its ``seconds``. Then the card line, the kernels
 line (with each kernel's ``launches_by_phase``: main, lag, conv, infomax,
@@ -146,6 +170,7 @@ import argparse
 import ctypes
 import dataclasses
 import datetime
+import gc
 import json
 import math
 import os
@@ -162,8 +187,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from navdv_torch import _build, ops
+from navdv_torch import _build, agent, ops
 from navdv_torch.analysis import (
+    _make_familiarity_probe,
     catchment,
     familiarity_map,
     full_circle_scan,
@@ -173,8 +199,10 @@ from navdv_torch.analysis import (
 )
 from navdv_torch.agent import (
     STATUS_REACHED,
+    AgentState,
     init_state,
     make_navigate_batch,
+    make_navigate_batch_fn,
     make_statics,
     make_step_batched,
     navigate,
@@ -187,6 +215,7 @@ from navdv_torch.config import (
     SimConfig,
     baseline_config,
 )
+from navdv_torch.capture import Captured
 from navdv_torch.checkpoint import load_infomax, save_infomax
 from navdv_torch.device import resolve_device
 from navdv_torch.familiarity import LibraryPack, pack_library, pad_library, zscore
@@ -265,6 +294,10 @@ MAP_BATCH = 1024
 MAP_DFAM_TOL = 1e-6
 PARALLEL_TIMEOUT_S = 600  # the parallel phase's ranks, all together
 PARALLEL_GROUP_TIMEOUT_S = 300  # a rank that waits longer in a collective fails
+# graphs phase: early-exit chunk sizes, steps per replay (agent.EXIT_CHUNK
+# is the default)
+GRAPH_CHUNKS = (1, 2, 4, 8, 16, 32, 64, 256)
+CHUNK_ROUNDS = 9  # timed early exits per chunk size, in round robin
 SLEEP_CYCLES = 50_000_000  # ~25 ms at the H100's clock: outlasts enqueuing one run
 GOLDEN = Path(__file__).resolve().parent / "tests" / "golden_oracle_small.npz"
 
@@ -1454,6 +1487,8 @@ def run_parallel(main_ref: dict, roll_ref: dict, sweep_ref: dict) -> dict:
         wall = max(r["episode_s"] for r in rs)
         meshes[tag] = {
             **{k: rs[0][k] for k in ("same_k0", "max_rel_dfam0", "success_rate", "bit_equal")},
+            "captured_by_rank": [r["captured"] for r in rs],
+            "eager_equal_by_rank": [r["eager_equal"] for r in rs],
             "episode_s": wall, "agent_steps_per_s": BATCH * cfg.agent.max_steps / wall,
             "episode_s_by_rank": [r["episode_s"] for r in rs],
             "lib_pmin_by_rank": [r["lib_pmin"] for r in rs],
@@ -1475,6 +1510,11 @@ def run_parallel(main_ref: dict, roll_ref: dict, sweep_ref: dict) -> dict:
         require(abs(m["success_rate"] - rate) <= ACCURACY_BAND,
                 f"parallel {tag}: success {m['success_rate']} vs unsharded {rate}")
         want = t_max if n_lib > 1 else 0
+        captured = backend == "nccl" or n_lib == 1  # gloo's collectives run on the host
+        require(m["captured_by_rank"] == [captured] * world,
+                f"parallel {tag}: captured {m['captured_by_rank']}, want {captured}")
+        require(all(m["eager_equal_by_rank"]),
+                f"parallel {tag}: a rank's episode differs from the eager one on its slice")
         require(m["lib_pmin_by_rank"] == [want] * world,
                 f"parallel {tag}: MIN collectives per rank {m['lib_pmin_by_rank']}, want {want}")
         for rank, counts in enumerate(m["launches_by_rank"]):
@@ -1564,7 +1604,7 @@ def parallel_child(tmp: str) -> None:
         mesh = meshes[(nd, nl)] = make_mesh(nd, nl)
         st_m = shard_statics(st, mesh, shard_lib=nl > 1)
         nav = make_navigate_sharded(cfg, mesh, "kernel", shard_lib=nl > 1)
-        nav(states0, st_m)  # warm-up
+        nav(states0, st_m)  # warm-up (and capture)
         torch.cuda.synchronize()
         dist.barrier()
         ops.reset_launch_counts()
@@ -1585,7 +1625,16 @@ def parallel_child(tmp: str) -> None:
                 dist.all_reduce(m, op=dist.ReduceOp.MIN, group=mesh.lib_group)
             torch.cuda.synchronize()
             coll_ms = (time.perf_counter() - t1) / cfg.agent.max_steps * 1e3
+        # this rank's slice against the eager episode on it (one MIN a step)
+        bl = BATCH // nd
+        rows = slice(mesh.data_index * bl, (mesh.data_index + 1) * bl)
+        eager = make_navigate_batch_fn(cfg, "kernel", lib_axis=mesh.lib_group if nl > 1 else None,
+                                       device=dev)
+        want = eager(AgentState(*(x[rows] for x in states0)), st_m)
+        eager_equal = all(torch.equal(a, b[rows]) for a, b in zip((*want[0], *want[1]),
+                                                                   (*final, *rec)))
         out["meshes"][f"{nd}x{nl}"] = {
+            "captured": nav.captured, "eager_equal": eager_equal,
             "episode_s": wall, "launches": launches, "lib_pmin": pmin,
             "collective_ms_per_step": coll_ms,
             "same_k0": float((rec.k[:, 0] == ref_k[:, 0]).float().mean()),
@@ -1644,8 +1693,234 @@ def parallel_child(tmp: str) -> None:
                                          for k, v in res.items()),
                     "resumed_launches": ops.launch_counts()}
     (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(out))
+    # the teardown hangs while a CUDA graph that holds one of the groups'
+    # collectives is alive: free them first (the probe cache holds probes)
+    del nav, probe
+    _make_familiarity_probe.cache_clear()
+    gc.collect()
     dist.barrier()
     dist.destroy_process_group()
+
+
+def _counted(fn):
+    """``fn()`` with every launch and collective count zeroed just before
+    it and read just after; waits for the card."""
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    reset_collective_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {**ops.launch_counts(), **collective_counts()}
+
+
+def _timed(fn):
+    """``(fn(), seconds)``, on the host's clock until the card is done."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _wall_s(fn) -> float:
+    return _timed(fn)[1]
+
+
+def _differing_fields(a, b) -> list[str]:
+    """Names of the fields of two (states, records) pairs that differ."""
+    return [f"{tag}.{name}" for tag, x, y in (("final", a[0], b[0]), ("record", a[1], b[1]))
+            for name, u, v in zip(x._fields, x, y) if not torch.equal(u, v)]
+
+
+def compare_captured(eager, run, states0, st, aux, chunk=None) -> dict:
+    """The eager episode against the captured one on the same inputs: the
+    fields that differ (none may), both launch counts (equal on a full loop;
+    under early exit the captured chunks also launch their masked steps:
+    per step x chunks replayed x chunk), and each episode's wall time, in
+    the order eager, captured, captured, eager (the first captured call
+    captures, uncounted in the times). The captured result held from the
+    first call must be unchanged by the later ones."""
+    want, n_eager = _counted(lambda: eager(states0, st, aux))
+    got, n_captured = _counted(lambda: run(states0, st, aux))
+    held = [t.clone() for t in (*got[0], *got[1])]
+    walls = [_wall_s(lambda: eager(states0, st, aux)), _wall_s(lambda: run(states0, st, aux)),
+             _wall_s(lambda: run(states0, st, aux)), _wall_s(lambda: eager(states0, st, aux))]
+    t_max = want[1].k.shape[1]
+    n_exec = int((~want[1].done).sum(dim=1).max())
+    expected = dict(n_eager)
+    if chunk is not None and n_exec:
+        replays = max(1, -(-n_exec // chunk))
+        expected = {k: v // n_exec * replays * chunk for k, v in n_eager.items()}
+        require(all(v % n_exec == 0 for v in n_eager.values()),
+                f"eager early exit: launches {n_eager} not a multiple of its {n_exec} steps")
+    out = {
+        "differing_fields": _differing_fields(want, got),
+        "held_result_unchanged": all(torch.equal(a, b)
+                                     for a, b in zip(held, (*got[0], *got[1]))),
+        "launches_eager": n_eager, "launches_captured": n_captured,
+        "launches_captured_expected": expected, "steps_executed": n_exec, "max_steps": t_max,
+        "episode_s_eager": [walls[0], walls[3]], "episode_s_captured": [walls[1], walls[2]],
+        "success_rate": float(success_rate(got[0])), "captured": run.captured,
+    }
+    if chunk is not None:
+        out["exit_chunk"] = chunk
+    return out
+
+
+def check_window_capture(dev: torch.device) -> dict:
+    """One window-gather launch (a ctypes library with its own CUDA runtime)
+    captured and replayed against the same launch run eagerly, at the main
+    path's shapes."""
+    rng = np.random.default_rng(5)
+    land = torch.from_numpy(rng.uniform(size=(512, 512)).astype(np.float32)).to(dev)
+    by = torch.from_numpy(rng.integers(0, 488, BATCH).astype(np.int32)).to(dev)
+    bx = torch.from_numpy(rng.integers(0, 488, BATCH).astype(np.int32)).to(dev)
+    graphed = Captured(lambda l, y, x: window_gather(l, y, x, 24, 24), dev, "window gather")
+    got, counts = _counted(lambda: graphed(land, by, bx))
+    want = window_gather(land, by, bx, 24, 24)
+    return {"bit_equal": bool(torch.equal(got, want)), "launches": counts["window_gather"]}
+
+
+def map_pair(probe, pts: np.ndarray, st, aux) -> dict:
+    """A familiarity map's batches (padded as ``familiarity_map`` pads them)
+    through the captured ``probe.best`` and through ``probe.best.eager``."""
+    zeros = np.zeros(MAP_BATCH, np.float32)
+    batches = []
+    for lo in range(0, len(pts), MAP_BATCH):
+        chunk = pts[lo:lo + MAP_BATCH]
+        if len(chunk) < MAP_BATCH:
+            chunk = np.concatenate([chunk, np.repeat(chunk[-1:], MAP_BATCH - len(chunk), axis=0)])
+        batches.append(chunk)
+
+    def whole(best):
+        return [best(c, zeros, st, aux) for c in batches]
+
+    want, n_eager = _counted(lambda: whole(probe.best.eager))
+    got, n_captured = _counted(lambda: whole(probe.best))
+    walls = [_wall_s(lambda: whole(probe.best.eager)), _wall_s(lambda: whole(probe.best)),
+             _wall_s(lambda: whole(probe.best)), _wall_s(lambda: whole(probe.best.eager))]
+    equal = all(torch.equal(a, b) for w, g in zip(want, got) for a, b in zip(w, g))
+    return {"positions": len(pts), "batches": len(batches), "bit_equal": equal,
+            "launches_eager": n_eager, "launches_captured": n_captured,
+            "ms_per_batch_eager": [walls[0] / len(batches) * 1e3, walls[3] / len(batches) * 1e3],
+            "ms_per_batch_captured": [walls[1] / len(batches) * 1e3,
+                                      walls[2] / len(batches) * 1e3],
+            "captured": probe.captured}
+
+
+def chunked_run(cfg: SimConfig, fam_impl: str, chunk: int):
+    """The captured early exit with ``chunk`` steps per replay
+    (``agent.EXIT_CHUNK``, read when a run is built)."""
+    default, agent.EXIT_CHUNK = agent.EXIT_CHUNK, chunk
+    try:
+        return make_navigate_batch(cfg, fam_impl, early_exit=True)
+    finally:
+        agent.EXIT_CHUNK = default
+
+
+def world_of(cfg: SimConfig, land, route, batch: int):
+    """Statics with a freshly trained library, and the trials' start states."""
+    st = make_statics(land, train_library(land, route, cfg), route)
+    return st, init_state(*make_trials(route, cfg, batch, seed=0))
+
+
+def run_graphs(dev: torch.device) -> dict:
+    """Each compiled program of the JAX package, eager against captured on
+    the same inputs (one window-gather launch first): the batched episode on
+    config 4 ``kernel``, config 4 ``fft`` as shipped, config 2 ``roll``,
+    config 3 on the fused sector path, config 4 ``conv``, config 1
+    ``infomax`` (its training too: W bit-equal), the default sweep's first
+    cell with early exit at every chunk size of GRAPH_CHUNKS, and config
+    1's familiarity map on ``kernel``. Every path must give bit-equal final
+    states and records and the expected launch counts. Returns the phase's
+    results."""
+    t_phase = time.perf_counter()
+    out = {"window_gather_capture": check_window_capture(dev)}
+    cfg4, land, route = slice_config()
+    st4, states4 = world_of(cfg4, land, route, BATCH)
+    cfg2, land2, route2 = bench_config(2, CONFIG2_VIEWS)
+    cfg3, land3, route3 = bench_config(3, VIEWS)
+    cfg1 = exact_cfg(bench_config(1, VIEWS)[0])
+    st1, states1 = world_of(cfg1, land, route, BATCH)
+    paths = [("kernel_config4", cfg4, "kernel", lambda: (st4, states4)),
+             ("fft_config4_shipped", bench_config(4, VIEWS)[0], "fft", lambda: (st4, states4)),
+             ("roll_config2", cfg2, "roll", lambda: world_of(cfg2, land2, route2, CONFIG2_BATCH)),
+             ("sector_config3", cfg3, "fft", lambda: world_of(cfg3, land3, route3, SECTOR_BATCH)),
+             ("conv_config4", cfg4, "conv", lambda: (st4, states4)),
+             ("infomax_config1", cfg1, "infomax", lambda: (st1, states1))]
+    for name, cfg, impl, world in paths:
+        st, states0 = world()
+        eager = make_navigate_batch_fn(cfg, impl)
+        run = make_navigate_batch(cfg, impl)
+        aux = None
+        if impl == "infomax":
+            scan = cfg.scan
+            args = (st.lib, scan.infomax_units or cfg.sensor.n_pixels, scan.infomax_eta,
+                    scan.infomax_epochs, scan.infomax_seed, cfg.capture_spacing)
+            aux, captured_s = _timed(lambda: train_infomax(*args))
+            eager_pack, eager_s = _timed(lambda: train_infomax(*args, captured=False))
+            out["infomax_training"] = {
+                "updates": applied_updates(st.lib, scan.infomax_epochs, cfg.capture_spacing),
+                "w_bit_equal": bool(torch.equal(aux.w, eager_pack.w)),
+                "train_s_captured": captured_s, "train_s_eager": eager_s}
+        elif run.prepare is not None:
+            aux = run.prepare(st)
+        out[name] = compare_captured(eager, run, states0, st, aux)
+        del run, eager, aux
+        torch.cuda.empty_cache()
+
+    key, cfg5, _ = next(iter(SweepSpec().cells()))
+    impl5 = resolve_fam_impl(cfg5, "auto")
+    st5, states5 = world_of(cfg5, land, route, SweepSpec().n_trials)
+    eager = make_navigate_batch_fn(cfg5, impl5, early_exit=True)
+    prepare = make_step_batched(cfg5, impl5).lib_prepare
+    aux5 = None if prepare is None else prepare(st5)
+    exits, runs = {}, {}
+    for chunk in GRAPH_CHUNKS:
+        runs[chunk] = chunked_run(cfg5, impl5, chunk)
+        exits[chunk] = compare_captured(eager, runs[chunk], states5, st5, aux5, chunk=chunk)
+    walls = {chunk: [] for chunk in GRAPH_CHUNKS}
+    for _ in range(CHUNK_ROUNDS):  # round robin, so drift spreads over every chunk size
+        for chunk, run in runs.items():
+            walls[chunk].append(_wall_s(lambda: run(states5, st5, aux5)))
+    for chunk in GRAPH_CHUNKS:
+        exits[chunk]["episode_s_captured_median"] = float(np.median(walls[chunk]))
+        exits[chunk]["episode_s_captured_quartiles"] = [float(q) for q in
+                                                        np.percentile(walls[chunk], [25, 75])]
+    del runs
+    out["early_exit_sweep_cell"] = {"cell": key, "fam_impl": impl5, "batch": SweepSpec().n_trials,
+                                    "default_chunk": agent.EXIT_CHUNK, "rounds": CHUNK_ROUNDS,
+                                    "by_chunk": exits}
+
+    mcfg = full_circle_scan(cfg1)
+    probe = make_familiarity_probe(mcfg, "kernel")
+    xs = np.arange(cfg1.sensor.r_max, 511 - cfg1.sensor.r_max + 1e-9, MAP_STRIDE, dtype=np.float32)
+    pts = np.stack([a.ravel() for a in np.meshgrid(xs, xs)], axis=1)
+    out["map_kernel_config1"] = map_pair(probe, pts, st1, None)
+    emit({"phase": "graphs", **out, "seconds": time.perf_counter() - t_phase})
+
+    require(out["window_gather_capture"]["bit_equal"], "graphs: the captured window gather differs")
+    require(out["window_gather_capture"]["launches"] == 1,
+            "graphs: one replayed window gather did not count one launch")
+    require(out["infomax_training"]["w_bit_equal"], "graphs: captured infomax training gave "
+            "another W than the eager loop")
+    checked = {name: out[name] for name, *_ in paths}
+    checked.update({f"early_exit_chunk_{c}": r for c, r in exits.items()})
+    for name, r in checked.items():
+        require(r["captured"], f"graphs {name}: the run did not replay CUDA graphs")
+        require(not r["differing_fields"], f"graphs {name}: captured episode differs from eager "
+                f"in {r['differing_fields']}")
+        require(r["held_result_unchanged"], f"graphs {name}: a held result changed")
+        require(r["launches_captured"] == r["launches_captured_expected"],
+                f"graphs {name}: launches {r['launches_captured']}, want "
+                f"{r['launches_captured_expected']}")
+    m = out["map_kernel_config1"]
+    require(m["captured"] and m["bit_equal"], "graphs: the captured kernel map differs from eager")
+    require(m["launches_captured"] == m["launches_eager"],
+            f"graphs map: launches {m['launches_captured']} vs eager {m['launches_eager']}")
+    for name in MAIN_KERNELS:
+        require(m["launches_captured"][name] > 0, f"graphs map: kernel {name} was not launched")
+    return out
 
 
 def run_golden() -> None:
@@ -1741,6 +2016,8 @@ def main(argv=None) -> int:
     by_phase["parallel"] = run_parallel(main_ref, roll_ref, sweep_ref)
     by_phase["analysis"] = run_analysis(dev)
     run_golden()
+    torch.cuda.empty_cache()
+    run_graphs(dev)
 
     results["render"]["config3"] = {key: render3[key] for key in (
         "shape", "ms", "ms_in_run", "plain_ms", "bound_ms", "bound_by", "library_ms")}

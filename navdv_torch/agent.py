@@ -21,9 +21,11 @@ With ``render_mode="sector"`` the ``"fft"`` path renders through the sector
 renderer and absorbs its roll in the spectra; every other path renders
 "full", as in the JAX package. The step then RIDF-min-pools the per-lag
 minimum over each heading's tolerance window and decides: tie-ordered
-argmin, kinematics, stop rules. The episode is a Python loop over
-``max_steps`` with done-masking; nothing in it waits for the device unless
-``early_exit`` asks whether every agent is done. With ``lib_axis`` (a
+argmin, kinematics, stop rules. The episode
+(:func:`make_navigate_batch_fn`) is a Python loop over ``max_steps`` with
+done-masking; nothing in it waits for the device unless ``early_exit`` asks
+whether every agent is done. :func:`make_navigate_batch` replays it as CUDA
+graphs on the card, as the JAX package jits it. With ``lib_axis`` (a
 process group whose ranks hold one library shard each, as
 :mod:`navdv_torch.parallel` builds them) the per-lag minima are combined by
 :func:`lib_pmin` inside every step. ``make_step``,
@@ -43,6 +45,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from navdv_torch.capture import Captured, copy_out, host_collectives
 from navdv_torch.config import SimConfig, choose_fam_impl
 from navdv_torch.device import as_tensor, resolve_device
 from navdv_torch.familiarity import NCC_EPS, PAD_PENALTY, LibraryPack
@@ -69,6 +72,10 @@ STATUS_OFF = 3
 # candidate-extraction fp32 elements per agent before the (L x P) lag stack
 # is split into chunks (bounds the [B, L, P] transient at big sensors)
 FAM_CHUNK_ELEMS = 2 << 20
+
+# early exit on the card: steps per captured chunk, one host read each
+# (chosen on the card as host reads against masked steps: PERF.md)
+EXIT_CHUNK = 4
 
 # the port's names for the two extract-then-score JAX paths
 _PORT_NAMES = {"pallas": "kernel", "jnp": "plain"}
@@ -534,34 +541,24 @@ def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None, lib
     return step
 
 
-def make_navigate_batch(
-    cfg: SimConfig, fam_impl: str = "kernel", early_exit: bool = False, device=None,
-    lib_axis=None,
-):
-    """Batched trials: ``run(states0, statics, aux=None) -> (final[B],
-    StepRecord[B, T])``.
+def _empty_records(b: int, t_max: int, dev) -> StepRecord:
+    """The early-exit record buffer: zeros with ``done=True``, so the tail
+    that no step writes stays masked."""
+    return StepRecord(
+        xy=torch.zeros((b, t_max, 2), dtype=torch.float32, device=dev),
+        theta=torch.zeros((b, t_max), dtype=torch.float32, device=dev),
+        fam=torch.zeros((b, t_max), dtype=torch.float32, device=dev),
+        k=torch.zeros((b, t_max), dtype=torch.int32, device=dev),
+        dist_route=torch.zeros((b, t_max), dtype=torch.float32, device=dev),
+        done=torch.ones((b, t_max), dtype=torch.bool, device=dev),
+    )
 
-    The full loop runs ``max_steps`` steps with done-masking and never waits
-    for the device. ``early_exit`` stops once every agent is done (one
-    device sync per step); its records are preallocated with ``done=True``
-    and zeros so the untouched tail stays masked, giving the same result as
-    the full loop.
 
-    Callers running many episodes against one library build its constants
-    once with ``run.prepare(statics)`` and pass them as ``aux``; otherwise
-    each call prepares them once. ``run.prepare`` is None for paths with no
-    prepare stage (``"kernel"``, ``"plain"``, ``"conv"``).
-
-    ``lib_axis``: see :func:`make_step_batched`. Every rank of the group
-    holds the same agents and, after the step's collective, the same
-    minima, so under ``early_exit`` they stop at the same step.
-    """
-    dev = resolve_device(device)
-    step = make_step_batched(cfg, fam_impl, dev, lib_axis)
-    t_max = cfg.agent.max_steps
+def _episode(step, t_max: int, early_exit: bool, dev):
+    """The eager episode loop over ``step`` (see :func:`make_navigate_batch_fn`)."""
     lib_prepare = step.lib_prepare
 
-    def run(states0: AgentState, st: EpisodeStatics, aux=None):
+    def navigate(states0: AgentState, st: EpisodeStatics, aux=None):
         if aux is None and lib_prepare is not None:
             aux = lib_prepare(st)
         states = states0
@@ -572,15 +569,7 @@ def make_navigate_batch(
                 recs.append(rec)
             return states, StepRecord(*(torch.stack(f, dim=1) for f in zip(*recs)))
 
-        b = states0.theta.shape[0]
-        buf = StepRecord(
-            xy=torch.zeros((b, t_max, 2), dtype=torch.float32, device=dev),
-            theta=torch.zeros((b, t_max), dtype=torch.float32, device=dev),
-            fam=torch.zeros((b, t_max), dtype=torch.float32, device=dev),
-            k=torch.zeros((b, t_max), dtype=torch.int32, device=dev),
-            dist_route=torch.zeros((b, t_max), dtype=torch.float32, device=dev),
-            done=torch.ones((b, t_max), dtype=torch.bool, device=dev),
-        )
+        buf = _empty_records(states0.theta.shape[0], t_max, dev)
         for t in range(t_max):
             if bool(states.done.all()):
                 break
@@ -589,7 +578,127 @@ def make_navigate_batch(
                 dst[:, t] = src
         return states, buf
 
-    run.prepare = lib_prepare
+    navigate.lib_prepare = lib_prepare
+    return navigate
+
+
+def make_navigate_batch_fn(cfg: SimConfig, fam_impl: str = "kernel", lib_axis=None,
+                           early_exit: bool = False, device=None):
+    """The eager batched episode, ``navigate(states0, statics, aux=None) ->
+    (final[B], StepRecord[B, T])``: the unjitted counterpart of the JAX
+    package's ``make_navigate_batch_fn``, which :func:`make_navigate_batch`
+    captures.
+
+    The full loop runs ``max_steps`` steps with done-masking and never waits
+    for the device. ``early_exit`` stops once every agent is done (one
+    device sync per step); its records are preallocated with ``done=True``
+    and zeros so the untouched tail stays masked, giving the same result as
+    the full loop. ``aux=None`` prepares the per-library constants in the
+    call. ``navigate.lib_prepare`` is the step's prepare stage (None for
+    ``"kernel"``, ``"plain"`` and ``"conv"``). ``lib_axis``: see
+    :func:`make_step_batched`."""
+    dev = resolve_device(device)
+    step = make_step_batched(cfg, fam_impl, dev, lib_axis)
+    return _episode(step, cfg.agent.max_steps, early_exit, dev)
+
+
+def _exit_chunk(step, chunk: int, t_max: int):
+    """``chunk`` steps of the early-exit loop as one function to capture:
+    ``advance(states, t, buf, st, aux) -> all done`` updates the states,
+    the step counter ``t`` (i64[]) and the record buffer in place. A step
+    that starts with every agent done, or at ``t >= t_max``, leaves the
+    states and the records as they are (a device-side flag and
+    ``torch.where``), so chunks that run past the eager loop's exit give
+    its result bit for bit."""
+
+    def advance(states: AgentState, t: torch.Tensor, buf: StepRecord, st: EpisodeStatics, aux):
+        for _ in range(chunk):
+            go = (t < t_max) & ~states.done.all()
+            new, rec = step(states, st, aux)
+            col = t.clamp(max=t_max - 1).view(1)
+            for dst, src in zip(buf, rec):  # first: rec.done is the states' own done
+                dst.index_copy_(1, col, torch.where(go, src.unsqueeze(1), dst.index_select(1, col)))
+            for cur, nxt in zip(states, new):
+                cur.copy_(torch.where(go, nxt, cur))
+            t.add_(1)
+        return states.done.all()
+
+    return advance
+
+
+def make_navigate_batch(
+    cfg: SimConfig, fam_impl: str = "kernel", early_exit: bool = False, device=None,
+    lib_axis=None,
+):
+    """Batched trials: ``run(states0, statics, aux=None) -> (final[B],
+    StepRecord[B, T])``, the episode of :func:`make_navigate_batch_fn`
+    captured as CUDA graphs on the card (:mod:`navdv_torch.capture`), as
+    the JAX package jits it; results equal the eager episode's bit for bit.
+
+    - The full loop is one graph of ``max_steps`` steps (the JAX
+      ``lax.scan``); it never waits for the device.
+    - ``early_exit`` (the JAX ``lax.while_loop``, which stops on the
+      device; a graph cannot) replays a graph of :data:`EXIT_CHUNK` steps
+      (``run.exit_chunk``) and reads once per chunk whether every agent is
+      done; steps after that inside a chunk change nothing. The records
+      are preallocated with ``done=True`` and zeros so the untouched tail
+      stays masked, giving the same result as the full loop.
+
+    A graph is captured per batch and statics shape at its first call; each
+    call copies its states, statics and ``aux`` into the graph's buffers, so
+    a new landscape or library of the same shapes gives its own result.
+    Callers running many episodes against one library build its constants
+    once with ``run.prepare(statics)`` and pass them as ``aux``; otherwise
+    each call prepares them once, outside the graph. ``run.prepare`` is None
+    for paths with no prepare stage (``"kernel"``, ``"plain"``, ``"conv"``).
+
+    ``lib_axis``: see :func:`make_step_batched`. Every rank of the group
+    holds the same agents and, after the step's collective, the same
+    minima, so under ``early_exit`` they stop at the same chunk. An NCCL
+    group's ``all_reduce`` is captured with the step (the warm-up runs it
+    once first); a group whose collectives run on the host (gloo) cannot
+    be captured, so the run is then the eager episode. ``run.captured``
+    says whether CUDA graphs run: on the card, unless ``lib_axis`` is a
+    gloo group. On the CPU there is no graph; the run goes through the same
+    copy-in, call and copy-out around a direct call (the chunked early exit
+    included).
+    """
+    dev = resolve_device(device)
+    step = make_step_batched(cfg, fam_impl, dev, lib_axis)
+    t_max = cfg.agent.max_steps
+    lib_prepare = step.lib_prepare
+    eager = _episode(step, t_max, early_exit, dev)
+    if host_collectives(lib_axis):
+        eager.prepare, eager.captured, eager.exit_chunk = lib_prepare, False, None
+        return eager
+
+    if not early_exit:
+        whole = Captured(eager, dev, "episode")
+
+        def run(states0: AgentState, st: EpisodeStatics, aux=None):
+            if aux is None and lib_prepare is not None:
+                aux = lib_prepare(st)
+            return whole(states0, st, aux)
+
+        chunk = None
+    else:
+        chunk = EXIT_CHUNK
+        chunks = Captured(_exit_chunk(step, chunk, t_max), dev, "early-exit chunk")
+
+        def run(states0: AgentState, st: EpisodeStatics, aux=None):
+            if aux is None and lib_prepare is not None:
+                aux = lib_prepare(st)
+            args = (states0, torch.zeros((), dtype=torch.int64, device=dev),
+                    _empty_records(states0.theta.shape[0], t_max, dev), st, aux)
+            g = chunks.graph(*args)
+            g.load(*args)
+            for _ in range(0, t_max, chunk):
+                if bool(g.replay()):  # the one host read per chunk
+                    break
+            states, _, buf, _, _ = g.args
+            return copy_out((states, buf))
+
+    run.prepare, run.captured, run.exit_chunk = lib_prepare, dev.type == "cuda", chunk
     return run
 
 

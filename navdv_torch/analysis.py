@@ -14,8 +14,10 @@ Both probe the step's own familiarity stage (``step.fam`` of
 RIDF pooling), so what is plotted is what the agent computes on every
 ``fam_impl``, the learned infomax memory included. A map is one batched
 familiarity evaluation per ``batch`` positions: grid cells play the part
-of agents. A probe with ``lib_axis`` scores this rank's library shard and
-combines the shards' minima as the step does (:mod:`navdv_torch.parallel`).
+of agents. On the card a probe replays a CUDA graph per batch shape, as
+the JAX package jits it (:mod:`navdv_torch.capture`). A probe with
+``lib_axis`` scores this rank's library shard and combines the shards'
+minima as the step does (:mod:`navdv_torch.parallel`).
 """
 
 from __future__ import annotations
@@ -26,9 +28,16 @@ import functools
 import numpy as np
 import torch
 
-from navdv_torch.agent import EpisodeStatics, init_state, make_statics, make_step_batched
+from navdv_torch.agent import (
+    EpisodeStatics,
+    init_state,
+    make_statics,
+    make_step_batched,
+    resolve_fam_impl,
+)
+from navdv_torch.capture import Captured, host_collectives
 from navdv_torch.config import SimConfig
-from navdv_torch.device import resolve_device
+from navdv_torch.device import as_tensor, resolve_device
 from navdv_torch.familiarity import LibraryPack
 from navdv_torch.oracle import point_to_polyline_dists
 from navdv_torch.sensor import scan_shift_sets
@@ -69,7 +78,12 @@ def make_familiarity_probe(cfg: SimConfig, fam_impl: str = "auto", lib_axis=None
       the minimum over headings with the step's tie-break (smallest |shift|
       first, then lowest index);
     - ``probe.fused``: whether the sector branch took the fused front end
-      (``step.fam.fused``; False off the sector renderer).
+      (``step.fam.fused``; False off the sector renderer);
+    - ``probe.captured``: whether the probe replays CUDA graphs (on the
+      card, one per batch shape, captured at its first call; not with a
+      gloo ``lib_axis``, whose collectives run on the host);
+      ``probe.eager`` and ``probe.best.eager`` run the same functions
+      uncaptured.
 
     ``lib_axis`` is a process group over which the library is sharded, as
     in :func:`navdv_torch.agent.make_step_batched`: ``st`` is then this
@@ -84,23 +98,46 @@ def make_familiarity_probe(cfg: SimConfig, fam_impl: str = "auto", lib_axis=None
 def _make_familiarity_probe(cfg: SimConfig, fam_impl: str, dev: torch.device, lib_axis):
     step = make_step_batched(cfg, fam_impl, dev, lib_axis)
     fam_of = step.fam
+    prepare = step.lib_prepare
+    # infomax scores only with the network the caller trained (aux); the
+    # other prepare stages are rebuilt per call when aux is None
+    prepares_itself = prepare is not None and resolve_fam_impl(cfg, fam_impl) != "infomax"
     shifts, _ = scan_shift_sets(cfg.scan)
     tie_order = torch.as_tensor(cfg.scan.tie_order(), dtype=torch.long, device=dev)
 
-    def probe(xy, theta, st: EpisodeStatics, aux=None) -> torch.Tensor:
+    def probe_eager(xy, theta, st: EpisodeStatics, aux=None) -> torch.Tensor:
         return fam_of(init_state(xy, theta, dev), st, aux)
 
-    def best(xy, theta, st: EpisodeStatics, aux=None):
-        famo = probe(xy, theta, st, aux)[:, tie_order]
+    def best_eager(xy, theta, st: EpisodeStatics, aux=None):
+        famo = probe_eager(xy, theta, st, aux)[:, tie_order]
         # argmin (first minimum) over the tie-order permutation: the
         # step's tie-break exactly (agent._make_decide)
         j = torch.argmin(famo, dim=1)
         return famo.gather(1, j[:, None])[:, 0], tie_order[j]
 
+    if host_collectives(lib_axis):
+        probe, best = probe_eager, best_eager
+    else:
+        def graphed(fn, name):
+            captured = Captured(fn, dev, name)
+
+            def call(xy, theta, st: EpisodeStatics, aux=None):
+                if aux is None and prepares_itself:
+                    aux = prepare(st)  # outside the graph, as the episode does
+                return captured(as_tensor(xy, torch.float32, dev),
+                                as_tensor(theta, torch.float32, dev), st, aux)
+
+            return call
+
+        probe = graphed(probe_eager, "familiarity probe")
+        best = graphed(best_eager, "familiarity probe best")
+
     probe.angles = np.asarray(shifts, dtype=np.float32) * cfg.sensor.bin_width
-    probe.prepare = step.lib_prepare
+    probe.prepare = prepare
     probe.best = best
     probe.fused = bool(getattr(fam_of, "fused", False))
+    probe.eager, best.eager = probe_eager, best_eager
+    probe.captured = dev.type == "cuda" and not host_collectives(lib_axis)
     return probe
 
 

@@ -1,0 +1,207 @@
+"""CUDA graphs: the port's counterpart of the JAX package's compiled programs.
+
+The JAX package compiles its whole programs with ``jax.jit``: an episode (a
+``lax.scan`` or ``lax.while_loop`` over the steps), infomax training (a
+``lax.scan`` over the updates) and the analysis probes. The port runs the
+same operations from Python, and a step issues tens of small launches, so
+on the card the host's dispatch sets the pace. :class:`Captured` gives such
+a program the compiled shape on a CUDA device:
+
+- the first call with a new input signature (every tensor's shape, dtype
+  and device, the tree that holds them, and its non-tensor leaves) copies
+  the inputs into static buffers, runs the function once on a side stream
+  (which builds the kernels, sets their one-time attributes and creates
+  the cuBLAS handles and workspaces), and only then captures it with
+  ``torch.cuda.graph`` into a private memory pool;
+- every call copies its inputs into the static buffers, replays the graph,
+  and returns fresh copies of the outputs, never the graph's own buffers,
+  so a result held from one call does not change at the next.
+
+The kernel launch counts (``ops.launch_counts``) and the step's collectives
+(``agent.lib_pmin.calls``) count what ran on the card: each replay adds the
+counts its capture recorded, and the warm-up and the capture add nothing.
+A capture that fails raises, with the operation that broke it in the
+traceback; nothing catches it and runs eagerly instead.
+
+On a CPU device there is no graph: the same copy-in, call and copy-out run
+around a direct call, which counts as it runs. Collectives that run on the
+host (gloo) cannot be captured; callers decide that from the group's
+backend (:func:`host_collectives`) before they build anything.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from navdv_torch import ops
+
+MAX_GRAPHS = 4  # input signatures a Captured keeps; the oldest graph goes first
+
+
+def host_collectives(group) -> bool:
+    """Whether the collectives of process group ``group`` run on the host
+    (any backend but NCCL, i.e. gloo), so that no CUDA graph can hold them.
+    ``None`` (no collective) is False."""
+    return group is not None and dist.get_backend(group) != "nccl"
+
+
+def _counters() -> list[tuple[object, str]]:
+    from navdv_torch.agent import lib_pmin  # agent imports this module
+
+    return [(fn, "launches") for fn in ops._WRAPPERS.values()] + [(lib_pmin, "calls")]
+
+
+def _read_counts() -> list[int]:
+    return [getattr(obj, attr) for obj, attr in _counters()]
+
+
+def _write_counts(values: list[int]) -> None:
+    for (obj, attr), v in zip(_counters(), values):
+        setattr(obj, attr, v)
+
+
+def _flatten(tree, leaves: list):
+    """Append ``tree``'s tensors to ``leaves``; return its hashable spec:
+    the tree's types, each tensor's shape, dtype and device, and every
+    non-tensor leaf's value."""
+    if isinstance(tree, torch.Tensor):
+        leaves.append(tree)
+        return ("tensor", tuple(tree.shape), tree.dtype, tree.device)
+    if isinstance(tree, (tuple, list)):
+        return (type(tree), tuple(_flatten(x, leaves) for x in tree))
+    if isinstance(tree, dict):
+        return (dict, tuple((k, _flatten(v, leaves)) for k, v in tree.items()))
+    try:
+        hash(tree)
+    except TypeError:
+        raise TypeError(f"a captured function takes tensors, trees of them and hashable "
+                        f"constants; got a {type(tree).__name__}") from None
+    return ("const", tree)
+
+
+def _unflatten(spec, leaves):
+    kind, body = spec[0], spec[1]
+    if kind == "tensor":
+        return next(leaves)
+    if kind == "const":
+        return body
+    if kind is dict:
+        return {k: _unflatten(s, leaves) for k, s in body}
+    children = [_unflatten(s, leaves) for s in body]
+    if kind in (tuple, list):
+        return kind(children)
+    return kind(*children)  # a NamedTuple
+
+
+def copy_out(tree):
+    """``tree`` with every tensor replaced by a fresh copy."""
+    leaves: list = []
+    spec = _flatten(tree, leaves)
+    return _unflatten(spec, iter([t.clone() for t in leaves]))
+
+
+_SIDE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
+
+
+def _side_stream(dev: torch.device) -> torch.cuda.Stream:
+    """One stream per card for every warm-up and capture, so that the cuBLAS
+    workspace the warm-up creates for it is the one the capture uses."""
+    if dev not in _SIDE_STREAMS:
+        _SIDE_STREAMS[dev] = torch.cuda.Stream(device=dev)
+    return _SIDE_STREAMS[dev]
+
+
+class Graph:
+    """``fn`` captured at one input signature.
+
+    ``args`` are the static inputs (copies of the first call's), which the
+    function reads and may update in place; ``load(*args)`` copies new
+    inputs into them, ``replay()`` runs the graph (on the CPU: calls ``fn``)
+    and returns its outputs: the graph's own buffers, which the next replay
+    overwrites. Use :func:`copy_out` on what is kept."""
+
+    def __init__(self, fn, spec, leaves: list, device: torch.device, name: str):
+        self.fn, self.spec, self.name = fn, spec, name
+        self._static = [t.clone() for t in leaves]
+        self.args = _unflatten(spec, iter(self._static))
+        self.graph = None
+        self.out = None
+        if device.type == "cuda":
+            self._capture(device)
+        elif device.type != "cpu":
+            raise ValueError(f"{name}: no capture on device {device}")
+
+    def _capture(self, dev: torch.device) -> None:
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        saved = _read_counts()
+        try:
+            side = _side_stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self.fn(*self.args)  # warm-up: builds kernels, handles, workspaces
+            torch.cuda.current_stream(dev).wait_stream(side)
+            warmed = _read_counts()
+            self.graph = torch.cuda.CUDAGraph()
+            try:
+                # thread_local: a collective's watchdog thread may query events
+                with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
+                    self.out = self.fn(*self.args)
+            except Exception as e:
+                raise RuntimeError(f"{self.name}: CUDA graph capture failed ({e}); the "
+                                   "operation that broke it is in the traceback above") from e
+            self._delta = [a - b for a, b in zip(_read_counts(), warmed)]
+        finally:
+            _write_counts(saved)
+
+    def load(self, *args) -> None:
+        leaves: list = []
+        spec = _flatten(args, leaves)
+        if spec != self.spec:
+            raise ValueError(f"{self.name}: inputs of another signature than the capture's")
+        self._load(leaves)
+
+    def _load(self, leaves: list) -> None:
+        for dst, src in zip(self._static, leaves):
+            if dst is not src:
+                dst.copy_(src)
+
+    def replay(self):
+        if self.graph is None:
+            self.out = self.fn(*self.args)
+        else:
+            self.graph.replay()
+            _write_counts([a + b for a, b in zip(_read_counts(), self._delta)])
+        return self.out
+
+
+class Captured:
+    """``fn(*args)`` (trees of tensors in and out) run through a
+    :class:`Graph` per input signature, captured at its first call on
+    ``device`` and kept while this object lives (at most :data:`MAX_GRAPHS`,
+    the oldest dropped first). Calls return fresh tensors."""
+
+    def __init__(self, fn, device, name: str):
+        self.fn, self.device, self.name = fn, torch.device(device), name
+        self._graphs: dict = {}
+
+    def _graph(self, spec, leaves: list) -> Graph:
+        g = self._graphs.get(spec)
+        if g is None:
+            g = Graph(self.fn, spec, leaves, self.device, self.name)
+            while len(self._graphs) >= MAX_GRAPHS:
+                self._graphs.pop(next(iter(self._graphs)))
+            self._graphs[spec] = g
+        return g
+
+    def graph(self, *args) -> Graph:
+        """The graph for ``args``' signature, captured now if it is new."""
+        leaves: list = []
+        return self._graph(_flatten(args, leaves), leaves)
+
+    def __call__(self, *args):
+        leaves: list = []
+        g = self._graph(_flatten(args, leaves), leaves)
+        g._load(leaves)
+        return copy_out(g.replay())

@@ -5,9 +5,9 @@ opt-in, never picked by ``"auto"``). Counterpart of the JAX package's
 - Training, once per library (the step's prepare stage): each z-scored
   library view x is presented to W[M, P]; with h = Wx, y = tanh(h), the
   Infomax update is ``dW = eta / P * (W - (y + h) (h^T W))``, presented once
-  per epoch in library order. It is sequential by construction: a Python
-  loop of f32 matrix-vector products on the device that never waits for
-  the host.
+  per epoch in library order. It is sequential by construction: f32
+  matrix-vector products on the device that never wait for the host, one
+  epoch of them captured as a CUDA graph and replayed per epoch.
 - Scoring, every step: novelty ``mean_i |h_i|`` over the M units with the
   candidate's z-score folded in, ``h = (Wx - mu_x * W1) / sigma_x``, formed
   in fp64 from the fp32 candidates and the fp32 W (the cancellation is
@@ -26,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from navdv_torch.capture import Captured
 from navdv_torch.device import as_tensor
 from navdv_torch.familiarity import NCC_EPS, LibraryPack
 
@@ -93,12 +94,22 @@ def initial_weights(n_units: int, n_pixels: int, seed: int) -> torch.Tensor:
 
 
 def train_infomax(lib: LibraryPack, n_units: int, eta: float, epochs: int, seed: int,
-                  capture_spacing: float | None = None, w0=None) -> InfomaxPack:
+                  capture_spacing: float | None = None, w0=None, captured: bool = True
+                  ) -> InfomaxPack:
     """Train W on the library's z-scored views, on the library's device.
 
     Padded views (valid = 0) take no update, so bucketed libraries train
     identically to unpadded ones. ``epochs=0`` is AUTO (:func:`dose_schedule`;
-    :func:`applied_updates` counts the updates). ``w0`` (f32[M, P], any device) replaces :func:`initial_weights`."""
+    :func:`applied_updates` counts the updates). ``w0`` (f32[M, P], any
+    device) replaces :func:`initial_weights`.
+
+    The whole epochs run as one epoch of updates captured as a CUDA graph
+    (:mod:`navdv_torch.capture`; the JAX package's ``lax.scan``), replayed
+    ``epochs`` times on a static W into which ``w0`` is copied: the
+    capture's warm-up trains that buffer, never the caller's ``w0``. The
+    fractional epoch (at most one pass over the views) runs eagerly after
+    them. ``captured=False`` runs every update from the host instead, the
+    loop the graph replays; W is the same bit for bit."""
     z = lib.z.float()  # [Nl, P]
     nl, p = z.shape
     epochs, frac_rows = dose_schedule(nl, p, epochs, capture_spacing)
@@ -109,7 +120,7 @@ def train_infomax(lib: LibraryPack, n_units: int, eta: float, epochs: int, seed:
     # the one host read before the loop: which views update, and by how much
     valid = [float(v) for v in lib.valid.cpu()]
 
-    def present(rows) -> None:
+    def present(w, z, rows):
         for i in rows:
             if valid[i] == 0.0:
                 continue  # w + 0 * dW == w
@@ -117,10 +128,19 @@ def train_infomax(lib: LibraryPack, n_units: int, eta: float, epochs: int, seed:
             hw = torch.mv(w.t(), h)  # [P] == h^T W
             dw = torch.addr(w, torch.tanh(h).add_(h), hw, alpha=-1.0)  # W - (y + h) (h^T W)
             w.add_(dw, alpha=scale * valid[i])
+        return w
 
-    for _ in range(epochs):
-        present(range(nl))
-    present(frac_rows)
+    if captured and epochs > 0:
+        epoch = Captured(lambda w, z: present(w, z, range(nl)), z.device, "infomax epoch")
+        g = epoch.graph(w, z)
+        g.load(w, z)
+        for _ in range(epochs):
+            g.replay()
+        w = g.args[0].clone()
+    else:
+        for _ in range(epochs):
+            present(w, z, range(nl))
+    present(w, z, frac_rows)
     return InfomaxPack(w=w, wsum=torch.sum(w, dim=1))
 
 

@@ -193,6 +193,19 @@ def make_navigate_sharded(cfg: SimConfig, mesh: Mesh, fam_impl: str = "kernel",
     stage), as :func:`navdv_torch.agent.make_navigate_batch` does.
     ``"infomax"`` cannot shard the library: with ``shard_lib=False`` every
     rank trains the network from the whole library.
+
+    This rank's slice runs through :func:`navdv_torch.agent.make_navigate_batch`,
+    captured as CUDA graphs on the card when the episode holds no collective
+    (a data mesh) or the lib group's backend is NCCL, whose ``all_reduce``
+    is captured with the step after the warm-up has run it. A lib group on
+    gloo runs the eager episode (``make_navigate_batch_fn``): its
+    collectives are host operations. This is decided from the group's
+    backend when the run is built, and ``run.captured`` shows it. The data
+    gather runs after the episode, outside any graph. Free the runs and
+    probes built on an NCCL lib group (the probe cache keeps probes:
+    ``analysis._make_familiarity_probe.cache_clear()``) before
+    ``destroy_process_group``: while a CUDA graph that holds one of the
+    group's collectives is alive, the teardown hangs.
     """
     fam_impl = resolve_fam_impl(cfg, fam_impl)
     lib_axis = mesh.lib_group if shard_lib and mesh.shape[LIB_AXIS] > 1 else None
@@ -220,7 +233,7 @@ def make_navigate_sharded(cfg: SimConfig, mesh: Mesh, fam_impl: str = "kernel",
         out = gather_data(mesh, [*final, *rec])
         return AgentState(*out[:len(final)]), StepRecord(*out[len(final):])
 
-    run.prepare = nav.prepare
+    run.prepare, run.captured = nav.prepare, nav.captured
     return run
 
 
@@ -246,7 +259,9 @@ def make_navigate_cells(cfg: SimConfig, mesh: Mesh, fam_impl: str = "kernel",
     It is None for paths with no prepare stage.
 
     The mesh must have a lib axis of 1: within-cell library sharding belongs
-    to :func:`make_navigate_sharded`.
+    to :func:`make_navigate_sharded`. Each cell's episode holds no
+    collective, so on the card it replays captured CUDA graphs
+    (``run.captured``; :func:`navdv_torch.agent.make_navigate_batch`).
     """
     if mesh.shape[LIB_AXIS] != 1:
         raise ValueError(
@@ -302,6 +317,7 @@ def make_navigate_cells(cfg: SimConfig, mesh: Mesh, fam_impl: str = "kernel",
         local = [torch.stack([o[k] for o in outs]) for k in names]
         return dict(zip(names, gather_data(mesh, local)))
 
+    run.captured = nav.captured
     if lib_prepare is None:
         run.prepare = None
         return run
