@@ -42,7 +42,14 @@ Phases, one JSON line each:
             ``hat_dtype="bfloat16"`` the agreement is reported only (the JAX
             lag prep pools without the bf16 box filter); the lag kernel's
             launch count over the phase must be > 0;
-7. spectral — config 4 as shipped (``spectral_cutoff=72``) through
+7. reference_functions — the JAX package's reference functions (ROADMAP
+            A.20) on the main episode's 4 x 1024 poses at config 4:
+            ``make_familiarity_jnp`` over the extended shift set's candidate
+            views equal to the ``"plain"`` step's familiarity within rtol
+            1e-9 and the kernel path's tie-ordered candidate at >= 99.9% of
+            poses; ``make_render_panorama_gather`` within 1e-5 of the window
+            renderer (f32);
+8. spectral — config 4 as shipped (``spectral_cutoff=72``) through
             ``NavigationSimulator`` with its default ``fam_impl="auto"``, which
             must resolve to ``"fft"``: the main phase's 1024 trials, success
             within 0.025 of the main phase's; the episode must launch the
@@ -50,7 +57,7 @@ Phases, one JSON line each:
             ``spectral_cutoff=0``, on the lag phase's 4 x 1024 poses, >= 99.9%
             of tie-ordered candidates must equal the kernel path's
             ``step.fam`` (the shipped cutoff's agreement is reported only);
-8. sector — config 3 as shipped (64x360 sensor, NCC, tol_bins 3, the fused
+9. sector — config 3 as shipped (64x360 sensor, NCC, tol_bins 3, the fused
             sector front end, ``bench_config(3, 50)``, 256 agents): on 256
             trial poses the sector render, unrolled, within 2e-4 (f32) and
             3e-2 (bf16) of the full render, and the render kernel timed at
@@ -65,40 +72,40 @@ Phases, one JSON line each:
             only). At config 4's shapes (u = 5) the spectral minimum with
             ``roll_k`` equals that of the unrolled panorama to rtol 1e-9 or
             one f32 rounding step;
-9. roll   — config 2 as shipped (500 views, 120 headings, 512 trials)
+10. roll   — config 2 as shipped (500 views, 120 headings, 512 trials)
             through ``NavigationSimulator``, whose ``"auto"`` must resolve to
             ``"roll"``, against the kernel path on the same trials: success
             within 0.010 (``bench.py`` ACCURACY_BAND[2]), >= 99.9% of agents
             with the same first candidate, window and render launched, no
             distance kernel;
-10. roll_knobs — one config-2 library minimum on the roll phase's poses:
+11. roll_knobs — one config-2 library minimum on the roll phase's poses:
             ``fixed_point_bits=8`` equals a float64 evaluation of the
             quantized SSD to rtol 2e-7, ``roll_rank=16`` is within 4e-3 of the
             largest |l|^2 of the dense roll path; one episode with each knob,
             its success rate reported only;
-11. checkpoint — the spectral phase's library saved and loaded into a fresh
+12. checkpoint — the spectral phase's library saved and loaded into a fresh
             simulator, whose episode must give the same final states;
-12. sweep — the default ``SweepSpec`` (config 5: 8 cells, 256 trials, 256
+13. sweep — the default ``SweepSpec`` (config 5: 8 cells, 256 trials, 256
             steps, early exit) on the bench world with a 128-trial recall
             check: each cell runs the path "auto" resolves to (``kernel`` at
             36x8, ``fft`` at 72x16), each fft cell's recall within 0.025 of
             the kernel path's on its subset; a second run resumes all 8 cells
             from disk and launches no kernel; ``summary.json`` lists 8 cells;
-13. conv   — (after sector) the conv path at config 4's width (cutoff 0) on
+14. conv   — (after sector) the conv path at config 4's width (cutoff 0) on
             the main episode's library: >= 99.9% of tie-ordered candidates
             equal to the kernel path's on the lag phase's 4 x 1024 poses,
             one episode on the main trials with success within 0.025 of
             the kernel path's, window and render launched and no distance
             kernel; device ms/step, and the fp64 contraction by ``conv1d``
             timed beside the port's unfold product (equal to 1e-12);
-14. infomax — (after conv) the learned memory at config 1's width (1024
+15. infomax — (after conv) the learned memory at config 1's width (1024
             agents, AUTO dose) on the main library: trained on the card
             (seconds), one epoch on the card within 1e-4 (relative
             Frobenius) of the CPU's from the same initial weights (the full
             dose's difference reported), the ``.npz`` checkpoint giving
             bit-equal ``step.fam``, one episode (success reported only),
             window and render launched and no distance kernel;
-15. analysis — (after sweep) config 1 as shipped: the RIDF valley within
+16. analysis — (after sweep) config 1 as shipped: the RIDF valley within
             one fine bin of 0 on ``"kernel"`` and ``"auto"``, the stride-8
             familiarity map (3,844 positions, 4 batches of 1024) on
             ``"kernel"``, which must launch window, render and min distance,
@@ -107,10 +114,10 @@ Phases, one JSON line each:
             within 1e-6 of scale (the shipped cutoff's agreement reported
             only); ms per batch, catchment fractions and the
             heading error at every capture pose;
-16. golden — the port's own training plus a one-agent episode on the small
+17. golden — the port's own training plus a one-agent episode on the small
             parity world against ``tests/golden_oracle_small.npz``; the
             one-agent ``navigate()`` must give the batched episode's record;
-17. parallel — (after sweep) ``navdv_torch.parallel`` over ranks this
+18. parallel — (after sweep) ``navdv_torch.parallel`` over ranks this
             script starts as processes of its own (``--parallel-child``,
             torchrun's variables): NCCL with a card per rank where there are
             2 cards or more (a world of 4 from 4 cards, else 2), gloo with 2
@@ -135,7 +142,36 @@ Phases, one JSON line each:
             Each mesh's run must replay CUDA graphs unless its lib group is
             on gloo, and each rank's slice must equal the eager episode's
             (``make_navigate_batch_fn``) bit for bit;
-18. graphs — (last) the JAX package's compiled programs as CUDA graphs
+19. big_landscape — (after golden) config 1 on the 4096^2 fractal world of
+            ``bench.py run_big_landscape`` (67 MB, past the TPU window
+            kernel's VMEM budget and the card's 50 MB L2; the landscape is
+            made once): ``NavigationSimulator`` with "auto", which must
+            resolve to ``"fft"``, on 1024 trials, the captured episode equal
+            to the eager one bit for bit, success at or above the exact
+            kernel path's recall on 256 trials less 0.025, window and render
+            launched and no distance kernel (the gate launches min
+            distance); the landscape on the card once. Then the window
+            gather and render kernels (f32 and bf16) at the trials' corners
+            (clustered) and at uniform corners (spread), each equal to its
+            plain version bit for bit and timed in the kernels phase's
+            timers beside its yardstick and bound; at the spread poses the
+            window renderer (f32) within 1e-5 of the gather renderer
+            evaluated in fp64 (in f32 its absolute coordinates round to
+            1.2e-4 px near x = 2048; that error is reported);
+20. memory — captured memory (ROADMAP C.13) on the bench world, with
+            ``capture.MAX_PROGRAMS`` lifted (the caches as before the bound)
+            and then bounded: allocated and reserved GB after each cell of
+            the default sweep (``run_sweep``), of a grid of 12 distinct
+            cells (views x max_steps x fam_impl, one ProgramCache) and of
+            40 familiarity maps on distinct configurations (r_max x metric
+            x fam_impl), the grid and the maps then revisiting their first
+            two configurations; and the GB of CUDA-graph pools (private
+            pools' segments, from ``torch.cuda.memory_snapshot``). Bounded,
+            the pools after the revisit within 5% of those after the first
+            two configurations, at most MAX_PROGRAMS graphs alive at the
+            end; the sweep's results and launch counts equal to the
+            unbounded run's;
+21. graphs — (last) the JAX package's compiled programs as CUDA graphs
             (``navdv_torch/capture.py``), each against its eager
             counterpart on the same inputs: one window-gather launch, then
             ``make_navigate_batch`` against ``make_navigate_batch_fn`` on
@@ -159,7 +195,8 @@ Phases, one JSON line each:
 
 Every phase line carries its ``seconds``. Then the card line, the kernels
 line (with each kernel's ``launches_by_phase``: main, lag, conv, infomax,
-parallel (summed over ranks and meshes), analysis) and, last, ``{"ok":
+parallel (summed over ranks and meshes), analysis, big_landscape; rows 1-2
+also at config 3's shapes and at 4096^2) and, last, ``{"ok":
 true, "device": ...}``. Any failed check raises and the script exits
 non-zero. Without a CUDA device it exits 2 and prints no result.
 """
@@ -171,6 +208,7 @@ import ctypes
 import dataclasses
 import datetime
 import gc
+import itertools
 import json
 import math
 import os
@@ -187,8 +225,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from navdv_torch import _build, agent, ops
+from navdv_torch import _build, agent, capture, ops, sweep
 from navdv_torch.analysis import (
+    _AUX_CACHE,
+    _STATICS_CACHE,
     _make_familiarity_probe,
     catchment,
     familiarity_map,
@@ -215,10 +255,16 @@ from navdv_torch.config import (
     SimConfig,
     baseline_config,
 )
-from navdv_torch.capture import Captured
+from navdv_torch.capture import Captured, ProgramCache
 from navdv_torch.checkpoint import load_infomax, save_infomax
 from navdv_torch.device import resolve_device
-from navdv_torch.familiarity import LibraryPack, pack_library, pad_library, zscore
+from navdv_torch.familiarity import (
+    LibraryPack,
+    make_familiarity_jnp,
+    pack_library,
+    pad_library,
+    zscore,
+)
 from navdv_torch.familiarity_conv import conv_lag_geometry, unfold_contraction
 from navdv_torch.familiarity_fft import make_lib_min_fft
 from navdv_torch.familiarity_infomax import applied_updates, initial_weights, train_infomax
@@ -253,9 +299,12 @@ from navdv_torch.sensor import (
     make_pooled_panorama,
     make_render_batch,
     make_render_batch_rolled,
+    make_render_panorama,
+    make_render_panorama_gather,
     make_views_from_pooled,
     polar_offsets,
     scan_lag_sets,
+    scan_shift_sets,
     unroll_panorama,
     window_geometry,
 )
@@ -299,6 +348,27 @@ PARALLEL_GROUP_TIMEOUT_S = 300  # a rank that waits longer in a collective fails
 GRAPH_CHUNKS = (1, 2, 4, 8, 16, 32, 64, 256)
 CHUNK_ROUNDS = 9  # timed early exits per chunk size, in round robin
 SLEEP_CYCLES = 50_000_000  # ~25 ms at the H100's clock: outlasts enqueuing one run
+# reference_functions phase: make_familiarity_jnp against the plain step
+# (both fp64, rounded to f32 once), the gather renderer against the window
+# renderer (f32)
+REFERENCE_FAM_RTOL = 1e-9
+REFERENCE_RENDER_TOL = 1e-5
+# big_landscape phase: bench.py run_big_landscape's world and gate
+BIG_SIZE = 4096
+BIG_GATE_BATCH = 256  # bench.py GATE_BATCH
+ACCURACY_BAND_1 = 0.025  # config 1's (bench.py ACCURACY_BAND[1])
+TPU_VMEM_LAND_MAX_ELEMS = 2_000_000  # navdv_tpu/ops/window_pallas.py:37, the TPU kernel's
+BIG_KERNEL_KEYS = ("max_abs_err", "distinct_cells", "ms", "ms_in_run", "plain_ms", "library_ms",
+                   "library_ms_in_run", "bound_ms", "bound_by", "f32_mode",
+                   "gather_render_max_abs_err_f32", "gather_f32_own_max_abs_err")
+# memory phase: views x max_steps x fam_impl (12 cells); r_max x metric x
+# fam_impl (40 maps, stride 32: one batch of 256 positions each)
+MEMORY_GRID = ((25, 50, 100), (64, 128), ("kernel", "fft"))
+MEMORY_MAPS = (tuple(10.0 + 0.5 * i for i in range(10)), ("ssd", "ncc"), ("kernel", "fft"))
+MEMORY_MAP_STRIDE = 32.0
+MEMORY_MAP_BATCH = 256
+MEMORY_TOL = 0.05
+SWEEP_TIMING = ("wall_s", "warmup_s", "agent_steps_per_s")  # host clock, not results
 GOLDEN = Path(__file__).resolve().parent / "tests" / "golden_oracle_small.npz"
 
 
@@ -402,13 +472,16 @@ def nbytes(*ts: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bench_config(n: int, views: int) -> tuple[SimConfig, np.ndarray, np.ndarray]:
+def bench_config(n: int, views: int, size: int = 512,
+                 kind: str = "blobs") -> tuple[SimConfig, np.ndarray, np.ndarray]:
     """BASELINE config ``n`` as shipped, on the bench world of ``bench.py``
-    ``_setup``: 512^2 blobs (seed 7, 150 features), sine route of length 40,
-    ``views`` stored views, a step budget of 1.3x the route's arc."""
+    ``_setup``: 512^2 blobs (seed 7, 150 features; or ``kind`` at ``size``^2,
+    as ``run_big_landscape`` asks for its fractal world), sine route of
+    length 40, ``views`` stored views, a step budget of 1.3x the route's
+    arc."""
     cfg = baseline_config(n)
-    land = make_landscape("blobs", size=(512, 512), seed=7, n_features=150)
-    route = make_route("sine", size=(512, 512), margin=60.0, length=ROUTE_LENGTH,
+    land = make_landscape(kind, size=(size, size), seed=7, n_features=150)
+    route = make_route("sine", size=(size, size), margin=60.0, length=ROUTE_LENGTH,
                        amplitude=ROUTE_LENGTH / 8.0)
     arc = float(np.hypot(*np.diff(route, axis=0).T).sum())
     cfg = dataclasses.replace(
@@ -439,33 +512,7 @@ def check_kernels(cfg: SimConfig, dev: torch.device) -> dict[str, dict]:
     by_np = rng.integers(0, 512 - wy + 1, size=BATCH).astype(np.int32)
     bx_np = rng.integers(0, 512 - wx + 1, size=BATCH).astype(np.int32)
     land = torch.from_numpy(land_np).to(dev)
-    by = torch.from_numpy(by_np).to(dev)
-    bx = torch.from_numpy(bx_np).to(dev)
-    got = window_gather(land, by, bx, wy, wx)
-    want = window_gather_plain(land, by, bx, wy, wx)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    require(torch.equal(got, want), "window gather differs from its plain version")
-    covered = np.zeros(land_np.shape, bool)  # landscape cells the windows need
-    for y, x in zip(by_np, bx_np):
-        covered[y : y + wy, x : x + wx] = True
-    b_ms, b_by = bound(int(covered.sum()) * 4 + nbytes(by, bx, got), 0)
-    # yardstick: one indexing kernel on the [H-wy+1, W-wx+1, wy, wx] view of
-    # every window, corners clamped beforehand
-    views = land.unfold(0, wy, 1).unfold(1, wx, 1)
-    by_c = by.long().clamp(0, land.shape[0] - wy)
-    bx_c = bx.long().clamp(0, land.shape[1] - wx)
-    require(torch.equal(views[by_c, bx_c], want), "unfold yardstick differs from the window gather")
-    results["window_gather"] = dict(
-        route="cuda", source="navdv_torch/csrc/window.cu",
-        replaces="navdv_tpu/ops/window_pallas.py:88",
-        max_abs_err=err, tolerance="exact",
-        ms=time_ms(lambda: window_gather(land, by, bx, wy, wx)),
-        ms_in_run=time_ms_in_run(lambda: window_gather(land, by, bx, wy, wx)),
-        library_ms_in_run=time_ms_in_run(lambda: views[by_c, bx_c]),
-        plain_ms=time_ms(lambda: window_gather_plain(land, by, bx, wy, wx)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lambda: views[by_c, bx_c]),
-    )
+    results["window_gather"], got = check_window(land, by_np, bx_np, wy, wx)
 
     results["render"] = check_render(got, sensor, dev, rng)
 
@@ -515,20 +562,58 @@ def check_kernels(cfg: SimConfig, dev: torch.device) -> dict[str, dict]:
     return results
 
 
-def check_render(win: torch.Tensor, sensor: SensorConfig, dev: torch.device, rng) -> dict:
+def check_window(land: torch.Tensor, by_np: np.ndarray, bx_np: np.ndarray, wy: int,
+                 wx: int) -> tuple[dict, torch.Tensor]:
+    """The window gather against its plain version (bit for bit) at corners
+    ``(by_np, bx_np)``, timed beside one PyTorch indexing call; returns the
+    kernel's row and the windows."""
+    dev = land.device
+    by = torch.from_numpy(by_np).to(dev)
+    bx = torch.from_numpy(bx_np).to(dev)
+    got = window_gather(land, by, bx, wy, wx)
+    want = window_gather_plain(land, by, bx, wy, wx)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    require(torch.equal(got, want), "window gather differs from its plain version")
+    covered = np.zeros(tuple(land.shape), bool)  # landscape cells the windows need
+    for y, x in zip(by_np, bx_np):
+        covered[y : y + wy, x : x + wx] = True
+    cells = int(covered.sum())
+    b_ms, b_by = bound(cells * 4 + nbytes(by, bx, got), 0)
+    # yardstick: one indexing kernel on the [H-wy+1, W-wx+1, wy, wx] view of
+    # every window, corners clamped beforehand
+    views = land.unfold(0, wy, 1).unfold(1, wx, 1)
+    by_c = by.long().clamp(0, land.shape[0] - wy)
+    bx_c = bx.long().clamp(0, land.shape[1] - wx)
+    require(torch.equal(views[by_c, bx_c], want), "unfold yardstick differs from the window gather")
+    return dict(
+        route="cuda", source="navdv_torch/csrc/window.cu",
+        replaces="navdv_tpu/ops/window_pallas.py:88",
+        max_abs_err=err, tolerance="exact", distinct_cells=cells,
+        ms=time_ms(lambda: window_gather(land, by, bx, wy, wx)),
+        ms_in_run=time_ms_in_run(lambda: window_gather(land, by, bx, wy, wx)),
+        library_ms_in_run=time_ms_in_run(lambda: views[by_c, bx_c]),
+        plain_ms=time_ms(lambda: window_gather_plain(land, by, bx, wy, wx)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lambda: views[by_c, bx_c]),
+    ), got
+
+
+def check_render(win: torch.Tensor, sensor: SensorConfig, dev: torch.device, rng,
+                 fxy: torch.Tensor | None = None) -> dict:
     """The render kernel against its plain version (bit for bit, both
-    modes) on windows ``win`` f32[B, W, W], at poses as the renderers make
-    them, timed beside ``grid_sample``."""
+    modes) on windows ``win`` f32[B, W, W], at poses ``fxy`` (in-window
+    position, cos, sin; random poses as the renderers make them where
+    None), timed beside ``grid_sample``."""
     batch, wx = win.shape[0], win.shape[2]
     dx0_np, dy0_np = polar_offsets(sensor)
     dx0 = torch.from_numpy(dx0_np).to(dev)
     dy0 = torch.from_numpy(dy0_np).to(dev)
     half = wx // 2
-    theta = rng.uniform(-math.pi, math.pi, size=batch)
-    fxy_np = np.stack([
-        rng.uniform(half, half + 1, size=batch), rng.uniform(half, half + 1, size=batch),
-        np.cos(theta), np.sin(theta)], axis=1).astype(np.float32)
-    fxy = torch.from_numpy(fxy_np).to(dev)
+    if fxy is None:
+        theta = rng.uniform(-math.pi, math.pi, size=batch)
+        fxy = torch.from_numpy(np.stack([
+            rng.uniform(half, half + 1, size=batch), rng.uniform(half, half + 1, size=batch),
+            np.cos(theta), np.sin(theta)], axis=1).astype(np.float32)).to(dev)
     render = {}
     for mode, hat_bf16 in (("f32", False), ("bf16", True)):
         got = render_windows(win, fxy, dx0, dy0, hat_bf16)
@@ -757,6 +842,50 @@ def run_lag(cfg, st, poses) -> int:
     require(out["float32"]["fam_within_1e-5"],
             f"lag vs step at float32: familiarity off by {out['float32']['max_abs_dfam']}")
     return launches
+
+
+def run_reference_functions(cfg, st, poses) -> None:
+    """The JAX package's reference functions on the main episode's 4 x 1024
+    poses at config 4: ``make_familiarity_jnp`` over the extended shift
+    set's candidate views (batched over agents) against the ``"plain"``
+    step's familiarity (rtol 1e-9) and the kernel path's tie-ordered
+    candidate (>= 99.9% equal), and the gather renderer against the
+    window renderer at f32 (1e-5)."""
+    t_phase = time.perf_counter()
+    sensor, scan = cfg.sensor, cfg.scan
+    fam_ref = make_familiarity_jnp(sensor, scan)
+    views = make_views_from_pooled(sensor, scan_shift_sets(scan)[1])
+    render, pooled = make_render_batch(sensor), make_pooled_panorama(sensor)
+    plain_fam = make_step_batched(cfg, "plain").fam
+    kernel_fam = make_step_batched(cfg, "kernel").fam
+    sensor_f32 = dataclasses.replace(sensor, hat_dtype="float32")
+    window_render = make_render_panorama(sensor_f32)
+    gather_render = make_render_panorama_gather(sensor_f32)
+    n = not_equal = same_k = 0
+    max_rel, fam_ok, render_err = 0.0, True, 0.0
+    for s in poses:
+        got = fam_ref(views(pooled(render(st.landscape, s.xy, s.theta))), st.lib)
+        want = plain_fam(s, st)
+        diff = (got.double() - want.double()).abs()
+        fam_ok &= bool((diff <= REFERENCE_FAM_RTOL * want.double().abs()).all())
+        max_rel = max(max_rel, float((diff / want.double().abs().clamp_min(1e-30)).max()))
+        not_equal += int((got != want).sum())
+        n += got.numel()
+        same_k += int((tie_k(got, scan) == tie_k(kernel_fam(s, st), scan)).sum())
+        render_err = max(render_err, float((gather_render(st.landscape, s.xy, s.theta)
+                                            - window_render(st.landscape, s.xy, s.theta))
+                                           .abs().max()))
+    poses_n = len(poses) * BATCH
+    emit({"phase": "reference_functions", "config": 4, "poses": poses_n,
+          "pose_steps": list(LAG_POSE_STEPS), "fam_results": n, "fam_not_bit_equal": not_equal,
+          "fam_max_rel_diff_vs_plain": max_rel, "same_k_vs_kernel": same_k / poses_n,
+          "gather_render_max_abs_err_f32": render_err, "seconds": time.perf_counter() - t_phase})
+    require(fam_ok, f"make_familiarity_jnp vs the plain step: relative difference {max_rel} "
+                    f"beyond {REFERENCE_FAM_RTOL}")
+    require(same_k / poses_n >= 0.999,
+            f"make_familiarity_jnp vs the kernel path: only {same_k / poses_n:.5f} equal candidates")
+    require(render_err <= REFERENCE_RENDER_TOL,
+            f"gather renderer vs the window renderer (f32): {render_err} > {REFERENCE_RENDER_TOL}")
 
 
 def phase_memory_start() -> int:
@@ -1702,6 +1831,286 @@ def parallel_child(tmp: str) -> None:
     dist.destroy_process_group()
 
 
+def big_corners(xy: torch.Tensor, wsz: int, size: int) -> tuple[np.ndarray, np.ndarray]:
+    """Window corners of poses ``xy`` as the renderer clamps them."""
+    c = (torch.floor(xy).to(torch.int32) - wsz // 2).clamp(0, size - wsz).cpu().numpy()
+    return c[:, 1].copy(), c[:, 0].copy()
+
+
+def check_big_kernels(land: torch.Tensor, trial_xy: torch.Tensor, trial_theta: torch.Tensor,
+                      sensor: SensorConfig) -> dict:
+    """The window gather and the render kernel on the 4096^2 landscape at
+    two corner layouts, the trials' (clustered round the route's start) and
+    uniform over the landscape (spread): each equal to its plain version bit
+    for bit, timed in the kernels phase's timers beside its yardstick and
+    bound; at the spread poses the window renderer (f32) against the gather
+    renderer, which reads the landscape directly."""
+    size = land.shape[0]
+    wsz = window_geometry(sensor)[1]
+    half = wsz // 2
+    rng = np.random.default_rng(BIG_SIZE)
+    spread_xy = rng.uniform(half, size - half - 1, size=(BATCH, 2)).astype(np.float32)
+    spread_theta = rng.uniform(-math.pi, math.pi, size=BATCH).astype(np.float32)
+    layouts = {"clustered": (trial_xy, trial_theta),
+               "spread": (torch.from_numpy(spread_xy).to(land.device),
+                          torch.from_numpy(spread_theta).to(land.device))}
+    out = {"window_gather": {}, "render": {}}
+    for name, (xy, theta) in layouts.items():
+        by_np, bx_np = big_corners(xy, wsz, size)
+        out["window_gather"][name], wins = check_window(land, by_np, bx_np, wsz, wsz)
+        fxy = torch.stack([xy[:, 0] - torch.from_numpy(bx_np).to(xy.device).float(),
+                           xy[:, 1] - torch.from_numpy(by_np).to(xy.device).float(),
+                           torch.cos(theta), torch.sin(theta)], dim=1)
+        out["render"][name] = check_render(wins, sensor, land.device, rng, fxy=fxy)
+    # the gather renderer's sample coordinates are absolute: near x = 2048 an
+    # f32 coordinate rounds to 1.2e-4 px, which moves a sample by ~1e-5-1e-4
+    # on this texture, so it is evaluated in fp64 (its f32 error reported)
+    sensor_f32 = dataclasses.replace(sensor, hat_dtype="float32")
+    xy, theta = layouts["spread"]
+    gather = make_render_panorama_gather(sensor_f32)
+    want = gather(land.double(), xy.double(), theta.double())
+    err = float((make_render_panorama(sensor_f32)(land, xy, theta) - want).abs().max())
+    out["render"]["spread"]["gather_render_max_abs_err_f32"] = err
+    out["render"]["spread"]["gather_f32_own_max_abs_err"] = float(
+        (gather(land, xy, theta) - want).abs().max())
+    require(err <= REFERENCE_RENDER_TOL, f"big landscape: window renderer vs the fp64 gather "
+            f"renderer {err} > {REFERENCE_RENDER_TOL}")
+    return out
+
+
+def run_big_landscape(cfg: SimConfig, land_np: np.ndarray, route: np.ndarray,
+                      dev: torch.device) -> tuple[dict, dict]:
+    """Config 1 on the 4096^2 fractal world of ``bench.py run_big_landscape``
+    (past the TPU window kernel's VMEM budget and the card's L2):
+    ``NavigationSimulator`` with "auto", which must resolve to "fft", on
+    1024 trials; its captured episode against the eager one (bit for bit);
+    its success against the exact kernel path's recall on GATE_BATCH
+    trials less ACCURACY_BAND_1; then the window and render kernels at
+    this size (:func:`check_big_kernels`). Returns the phase's launch
+    counts and the kernels' rows at this size, by corner layout."""
+    t_phase = time.perf_counter()
+    require(land_np.size > TPU_VMEM_LAND_MAX_ELEMS, "the big landscape fits the TPU kernel's VMEM")
+    base = phase_memory_start()
+    t0 = time.perf_counter()
+    sim = NavigationSimulator(cfg, land_np, route)
+    require(sim.fam_impl == "fft", f"config 1's auto resolved to {sim.fam_impl!r}")
+    sim.train()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    st = sim._statics
+    one_copy = st.landscape.data_ptr() == sim.landscape.data_ptr()
+    _, first_s = _timed(lambda: sim.navigate(n_trials=BATCH, seed=0))  # captures
+    res, counts, episode_s = timed_navigate(sim, n_trials=BATCH, seed=0)
+    replays_s = [episode_s] + [_wall_s(lambda: sim.navigate(n_trials=BATCH, seed=0))
+                               for _ in range(2)]
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    t_max = cfg.agent.max_steps
+    states0 = init_state(*make_trials(route, cfg, BATCH, seed=0))
+    eager = make_navigate_batch_fn(cfg, sim.fam_impl)
+    want, eager_s = _timed(lambda: eager(states0, st, sim._aux))
+    differ = _differing_fields(want, (res.final_state, res.record))
+    statics_bytes = nbytes(*(x for x in st if isinstance(x, torch.Tensor)), *st.lib)
+    buf = torch.empty_like(st.landscape)
+    copy_in_ms = time_ms(lambda: buf.copy_(st.landscape), runs=5, warmup=1)
+    del buf
+
+    gate = init_state(*make_trials(route, cfg, BIG_GATE_BATCH, seed=0))
+    run_k = make_navigate_batch(exact_cfg(cfg), "kernel")
+    final_k, gate_counts = _counted(lambda: run_k(gate, st)[0])
+    rate_ref = float(success_rate(final_k))
+    floor = max(0.0, rate_ref - ACCURACY_BAND_1)
+    launches = {name: counts[name] + gate_counts[name] for name in counts}
+    kernels = {name: {layout: {key: r[key] for key in BIG_KERNEL_KEYS if key in r}
+                      for layout, r in rows.items()}
+               for name, rows in check_big_kernels(sim.landscape, states0.xy, states0.theta,
+                                                   cfg.sensor).items()}
+    emit({
+        "phase": "big_landscape", "config": 1, "landscape": f"fractal-{BIG_SIZE}x{BIG_SIZE}",
+        "landscape_cells": int(land_np.size), "landscape_mb": land_np.nbytes / 1e6,
+        "fam_impl": sim.fam_impl, "batch": BATCH, "max_steps": t_max,
+        "library_views": int(sim.library.views.shape[0]), "success_rate": res.success_rate,
+        "exact_recall_ref": rate_ref, "recall_floor": floor, "gate_batch": BIG_GATE_BATCH,
+        "setup_s": setup_s, "first_call_s": first_s, "episode_s_captured": replays_s,
+        "episode_s_eager": eager_s,
+        "agent_steps_per_s": BATCH * t_max / float(np.median(replays_s)),
+        "captured_equals_eager": not differ, "differing_fields": differ,
+        "landscape_on_card_once": one_copy, "statics_copied_in_per_call_mb": statics_bytes / 1e6,
+        "statics_copy_in_ms": copy_in_ms, "peak_mem_gb": peak, "launches": counts,
+        "gate_launches": gate_counts, "kernels": kernels,
+        "seconds": time.perf_counter() - t_phase,
+    })
+    require(one_copy, "big landscape: the statics hold a second copy of the landscape")
+    require(not differ, f"big landscape: captured episode differs from eager in {differ}")
+    require(res.success_rate >= floor,
+            f"big landscape: success {res.success_rate} below the exact path's {rate_ref} "
+            f"less {ACCURACY_BAND_1}")
+    require_render_only(counts, "big_landscape")
+    require(gate_counts["min_distance"] > 0, "big landscape: the exact gate did not launch "
+            "the min-distance kernel")
+    return launches, kernels
+
+
+def _memory_gb() -> dict:
+    """Allocated and reserved GB, then the GB of CUDA-graph pools (the
+    segments of private pools) once the freed blocks are returned: what the
+    live graphs hold, their working sets included, which allocated bytes
+    leave out (a pool's transient blocks are free inside it)."""
+    torch.cuda.synchronize()
+    out = {"allocated": torch.cuda.memory_allocated() / 1e9,
+           "reserved": torch.cuda.memory_reserved() / 1e9}
+    torch.cuda.empty_cache()
+    out["graph_pools"] = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                             if tuple(seg["segment_pool_id"]) != (0, 0)) / 1e9
+    return out
+
+
+def _clear_program_caches() -> None:
+    """Drop every cached probe, statics and aux, and return the freed
+    blocks (graph pools included) to the card."""
+    _make_familiarity_probe.cache_clear()
+    _AUX_CACHE.clear()
+    _STATICS_CACHE.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _live_graphs(prefix: str) -> int:
+    """Live, unreleased ``capture.Graph`` objects of captured functions
+    whose name starts with ``prefix``."""
+    gc.collect()
+    return sum(1 for o in gc.get_objects()
+               if type(o) is capture.Graph and o.args is not None and o.name.startswith(prefix))
+
+
+def _memory_series(calls: list, prefix: str, revisit: int) -> dict:
+    """Run ``calls``, then the first ``revisit`` of them again; the memory
+    after each call, and the live graphs at the end."""
+    n = len(calls)
+    after = [(call(), _memory_gb())[1] for call in calls + calls[:revisit]]
+    out = {key: [m[key] for m in after] for key in after[0]}
+    out.update(configs=n, revisited=revisit, live_graphs=_live_graphs(prefix))
+    return out
+
+
+def _memory_summary(series: dict) -> dict:
+    """Graph pools and allocated GB after the first configurations (as many
+    as are revisited), after all, and after the revisit; growth per
+    configuration over the distinct ones."""
+    n, k = series["configs"], series["revisited"]
+    out = {}
+    for key in ("graph_pools", "allocated"):
+        v = series[key]
+        out[key] = {"after_first": v[k - 1], "after_all": v[n - 1], "after_revisit": v[-1],
+                    "growth_per_config": (v[n - 1] - v[0]) / (n - 1)}
+    return out
+
+
+def memory_runs(land: torch.Tensor, route: np.ndarray, libs: dict, tmp: str,
+                revisit: int) -> tuple:
+    """The three series of the memory phase at the current
+    ``capture.MAX_PROGRAMS``: the default sweep through ``run_sweep``
+    (memory after each cell), the grid of 12 distinct cells through
+    ``run_cell`` and one ProgramCache, and 40 maps on distinct
+    configurations, each then revisiting its first ``revisit``. Also
+    the sweep's results (timing left out) and launch counts."""
+    out = {}
+    _clear_program_caches()
+    cells = []
+    run_cell = sweep.run_cell
+
+    def recorded(*args, **kw):
+        res = run_cell(*args, **kw)
+        cells.append(_memory_gb())
+        return res
+
+    sweep.run_cell = recorded
+    try:
+        ops.reset_launch_counts()
+        res = run_sweep(land, route, SweepSpec(), tmp, verbose=False, tensorboard=False,
+                        recall_check_trials=SWEEP_RECALL_TRIALS)
+        launches = ops.launch_counts()
+    finally:
+        sweep.run_cell = run_cell
+    out["default_sweep"] = {key: [m[key] for m in cells] for key in cells[0]}
+    results = {key: {k: np.asarray(v).tolist() for k, v in r.items() if k not in SWEEP_TIMING}
+               for key, r in res.items()}
+    del res
+    _clear_program_caches()
+
+    cfg1 = bench_config(1, VIEWS)[0]
+    arc = cfg1.capture_spacing * (VIEWS - 0.5)
+    cache = ProgramCache()
+    grid = []
+    for views, steps, impl in itertools.product(*MEMORY_GRID):
+        cfg = dataclasses.replace(cfg1, capture_spacing=arc / (views - 0.5), agent=dataclasses
+                                  .replace(cfg1.agent, max_steps=steps))
+        cfg = exact_cfg(cfg) if impl == "kernel" else cfg
+        grid.append(lambda c=cfg, i=impl: sweep.run_cell(land, route, c, SweepSpec().n_trials, 0,
+                                                         i, nav_cache=cache))
+    out["grid_12"] = _memory_series(grid, "early-exit chunk", revisit)
+    del cache, grid
+    _clear_program_caches()
+
+    maps = []
+    for r_max, metric, impl in itertools.product(*MEMORY_MAPS):
+        cfg = with_scan(libs[r_max][0], metric=metric)
+        cfg = exact_cfg(cfg) if impl == "kernel" else cfg
+        maps.append(lambda c=cfg, i=impl, lib=libs[r_max][1]: familiarity_map(
+            land, lib, c, stride=MEMORY_MAP_STRIDE, fam_impl=i, batch=MEMORY_MAP_BATCH))
+    out["maps_40"] = _memory_series(maps, "familiarity probe", revisit)
+    _clear_program_caches()
+    return out, results, launches
+
+
+def run_memory(dev: torch.device) -> None:
+    """Captured memory (ROADMAP C.13) on the bench world: the default sweep,
+    a grid of 12 distinct cells (views x max_steps x fam_impl) and 40
+    familiarity maps on distinct configurations (r_max x metric x
+    fam_impl), first with the bound lifted (``capture.MAX_PROGRAMS =
+    None``, the caches as they were before it), then bounded. The grid and
+    the maps then revisit their first MAX_PROGRAMS configurations.
+    Bounded, the graph pools after the revisit must stay within 5% of
+    those after the first configurations, and at most MAX_PROGRAMS graphs
+    may live; the sweep's results and launch counts must equal the
+    unbounded run's."""
+    t_phase = time.perf_counter()
+    cfg1, land_np, route = bench_config(1, VIEWS)
+    land = torch.as_tensor(land_np, device=dev)
+    libs = {}
+    for r_max in MEMORY_MAPS[0]:
+        c = dataclasses.replace(cfg1, sensor=dataclasses.replace(cfg1.sensor, r_max=r_max))
+        libs[r_max] = (c, train_library(land, route, c))
+    bound_n = capture.MAX_PROGRAMS
+    out, results, launches = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode, limit in (("unbounded", None), ("bounded", bound_n)):
+            capture.MAX_PROGRAMS = limit
+            try:
+                out[mode], results[mode], launches[mode] = memory_runs(
+                    land, route, libs, str(Path(tmp) / mode), bound_n)
+            finally:
+                capture.MAX_PROGRAMS = bound_n
+    summary = {mode: {series: _memory_summary(out[mode][series])
+                      for series in ("grid_12", "maps_40")} for mode in out}
+    # as JSON: a NaN equals itself there
+    same = json.dumps(results["bounded"], sort_keys=True) == json.dumps(results["unbounded"],
+                                                                        sort_keys=True)
+    emit({"phase": "memory", "max_programs": bound_n, "grid": [list(a) for a in MEMORY_GRID],
+          "maps": [list(a) for a in MEMORY_MAPS], **out, "summary": summary,
+          "sweep_results_equal": same, "sweep_launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    require(same, "memory: the bounded sweep's results differ from the unbounded sweep's")
+    require(launches["bounded"] == launches["unbounded"],
+            f"memory: launches {launches['bounded']} bounded, {launches['unbounded']} unbounded")
+    for series in ("grid_12", "maps_40"):
+        pools = summary["bounded"][series]["graph_pools"]
+        require(pools["after_revisit"] <= (1 + MEMORY_TOL) * pools["after_first"],
+                f"memory: {series} graph pools {pools['after_revisit']} GB after the revisit, "
+                f"{pools['after_first']} GB after the first {bound_n} configurations")
+        live = out["bounded"][series]["live_graphs"]
+        require(live <= bound_n, f"memory: {series} leaves {live} graphs alive, bounded")
+
 def _counted(fn):
     """``fn()`` with every launch and collective count zeroed just before
     it and read just after; waits for the card."""
@@ -1998,6 +2407,7 @@ def main(argv=None) -> int:
     launches = {name: (n, "main") for name, n in counts.items()}
     poses = episode_poses(cfg, states0, rec)
     launches["lag_fam"] = (run_lag(cfg, st, poses), "lag phase")
+    run_reference_functions(cfg, st, poses)
     sim = run_spectral(cfg, st, poses, float(success_rate(final)))
     render3 = run_sector(cfg, st, poses, dev)
     by_phase = {"main": counts, "lag": {"lag_fam": launches["lag_fam"][0]}}
@@ -2017,17 +2427,25 @@ def main(argv=None) -> int:
     by_phase["analysis"] = run_analysis(dev)
     run_golden()
     torch.cuda.empty_cache()
+    cfg1, land1, route1 = bench_config(1, VIEWS, size=BIG_SIZE, kind="fractal")
+    by_phase["big_landscape"], big = run_big_landscape(cfg1, land1, route1, dev)
+    del land1
+    torch.cuda.empty_cache()
+    run_memory(dev)
     run_graphs(dev)
 
     results["render"]["config3"] = {key: render3[key] for key in (
         "shape", "ms", "ms_in_run", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    for name, rows in big.items():
+        results[name]["big_landscape"] = rows
     kernels = [
         {"name": name, "route": r["route"], "source": r["source"], "replaces": r["replaces"],
          "launches": launches[name][0], "launches_in": launches[name][1],
          "launches_by_phase": {ph: c[name] for ph, c in by_phase.items() if name in c},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"], **({"config3": r["config3"]} if "config3" in r else {})}
+         "library_ms": r["library_ms"],
+         **{key: r[key] for key in ("config3", "big_landscape") if key in r}}
         for name, r in results.items()
     ]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

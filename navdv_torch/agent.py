@@ -661,7 +661,8 @@ def make_navigate_batch(
     says whether CUDA graphs run: on the card, unless ``lib_axis`` is a
     gloo group. On the CPU there is no graph; the run goes through the same
     copy-in, call and copy-out around a direct call (the chunked early exit
-    included).
+    included). ``run.release()`` frees its graphs (their pools and static
+    buffers); the next call captures again.
     """
     dev = resolve_device(device)
     step = make_step_batched(cfg, fam_impl, dev, lib_axis)
@@ -670,6 +671,7 @@ def make_navigate_batch(
     eager = _episode(step, t_max, early_exit, dev)
     if host_collectives(lib_axis):
         eager.prepare, eager.captured, eager.exit_chunk = lib_prepare, False, None
+        eager.release = lambda: None
         return eager
 
     if not early_exit:
@@ -680,7 +682,7 @@ def make_navigate_batch(
                 aux = lib_prepare(st)
             return whole(states0, st, aux)
 
-        chunk = None
+        chunk, run.release = None, whole.release
     else:
         chunk = EXIT_CHUNK
         chunks = Captured(_exit_chunk(step, chunk, t_max), dev, "early-exit chunk")
@@ -698,6 +700,7 @@ def make_navigate_batch(
             states, _, buf, _, _ = g.args
             return copy_out((states, buf))
 
+        run.release = chunks.release
     run.prepare, run.captured, run.exit_chunk = lib_prepare, dev.type == "cuda", chunk
     return run
 

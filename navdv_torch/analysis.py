@@ -35,7 +35,7 @@ from navdv_torch.agent import (
     make_step_batched,
     resolve_fam_impl,
 )
-from navdv_torch.capture import Captured, host_collectives
+from navdv_torch.capture import Captured, ProgramCache, host_collectives
 from navdv_torch.config import SimConfig
 from navdv_torch.device import as_tensor, resolve_device
 from navdv_torch.familiarity import LibraryPack
@@ -90,8 +90,16 @@ def make_familiarity_probe(cfg: SimConfig, fam_impl: str = "auto", lib_axis=None
     rank's shard (:func:`navdv_torch.parallel.shard_statics`), every rank of
     the group probes the same poses, and each gets the familiarity over the
     whole library. Probes are cached on ``(cfg, fam_impl, device,
-    lib_axis)``."""
+    lib_axis)``. Past ``capture.MAX_PROGRAMS`` captured functions (a probe
+    and its ``best`` are two) the graphs of the least recently called are
+    released (:data:`_LIVE_PROBES`); such a function captures again at its
+    next call."""
     return _make_familiarity_probe(cfg, fam_impl, resolve_device(device), lib_axis)
+
+
+# the probes' captured functions that keep their graphs; the lru_cache
+# below owns the probes
+_LIVE_PROBES = ProgramCache(weak=True)
 
 
 @functools.lru_cache(maxsize=32)
@@ -124,6 +132,7 @@ def _make_familiarity_probe(cfg: SimConfig, fam_impl: str, dev: torch.device, li
             def call(xy, theta, st: EpisodeStatics, aux=None):
                 if aux is None and prepares_itself:
                     aux = prepare(st)  # outside the graph, as the episode does
+                _LIVE_PROBES[id(captured)] = captured
                 return captured(as_tensor(xy, torch.float32, dev),
                                 as_tensor(theta, torch.float32, dev), st, aux)
 

@@ -23,6 +23,13 @@ counts its capture recorded, and the warm-up and the capture add nothing.
 A capture that fails raises, with the operation that broke it in the
 traceback; nothing catches it and runs eagerly instead.
 
+A graph holds its static buffers and a private memory pool as long as it
+lives, where a jitted JAX function keeps only its executable. So the
+caches that keep captured programs across calls (``sweep.run_sweep``'s
+runs, ``analysis``'s probes) hold them in a :class:`ProgramCache`: at most
+:data:`MAX_PROGRAMS` programs keep their graphs, and an evicted program's
+are released at once; it captures again when it is next called.
+
 On a CPU device there is no graph: the same copy-in, call and copy-out run
 around a direct call, which counts as it runs. Collectives that run on the
 host (gloo) cannot be captured; callers decide that from the group's
@@ -31,12 +38,18 @@ backend (:func:`host_collectives`) before they build anything.
 
 from __future__ import annotations
 
+import weakref
+from collections import OrderedDict
+
 import torch
 import torch.distributed as dist
 
 from navdv_torch import ops
 
 MAX_GRAPHS = 4  # input signatures a Captured keeps; the oldest graph goes first
+# captured programs a ProgramCache keeps with their graphs; the least
+# recently used is released first (None: no bound)
+MAX_PROGRAMS = 2
 
 
 def host_collectives(group) -> bool:
@@ -167,7 +180,17 @@ class Graph:
             if dst is not src:
                 dst.copy_(src)
 
+    def release(self) -> None:
+        """Free the graph, its memory pool and the static buffers; the
+        Graph cannot replay after this."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.out = self.args = None
+        self._static = []
+
     def replay(self):
+        if self.args is None:
+            raise RuntimeError(f"{self.name}: the graph was released")
         if self.graph is None:
             self.out = self.fn(*self.args)
         else:
@@ -191,9 +214,16 @@ class Captured:
         if g is None:
             g = Graph(self.fn, spec, leaves, self.device, self.name)
             while len(self._graphs) >= MAX_GRAPHS:
-                self._graphs.pop(next(iter(self._graphs)))
+                self._graphs.pop(next(iter(self._graphs))).release()
             self._graphs[spec] = g
         return g
+
+    def release(self) -> None:
+        """Release every graph (pools and static buffers); the next call
+        captures again."""
+        for g in self._graphs.values():
+            g.release()
+        self._graphs.clear()
 
     def graph(self, *args) -> Graph:
         """The graph for ``args``' signature, captured now if it is new."""
@@ -205,3 +235,48 @@ class Captured:
         g = self._graph(_flatten(args, leaves), leaves)
         g._load(leaves)
         return copy_out(g.replay())
+
+
+class ProgramCache:
+    """Captured programs (objects with a ``release()`` that frees their
+    graphs) by key, least recently used first out: at most
+    :data:`MAX_PROGRAMS` of them, read at each insertion. ``cache[key] =
+    program`` adds or refreshes one, ``cache[key]`` returns one and marks it
+    used, ``key in cache`` only looks. An evicted program is released at
+    once; one built or called again captures again (one more warm-up and
+    capture, the same results).
+
+    ``weak=True`` holds the programs by weak reference, to bound the graphs
+    of programs that another cache owns: they stay usable after eviction
+    and free their graphs when they die."""
+
+    def __init__(self, weak: bool = False):
+        self._weak = weak
+        self._items: OrderedDict = OrderedDict()
+
+    def _program(self, item):
+        return item() if self._weak else item
+
+    def __contains__(self, key) -> bool:
+        return key in self._items and self._program(self._items[key]) is not None
+
+    def __len__(self) -> int:
+        return len(self._items)
+
+    def __iter__(self):
+        return iter(list(self._items))
+
+    def __getitem__(self, key):
+        program = self._program(self._items[key])
+        if program is None:
+            raise KeyError(key)
+        self._items.move_to_end(key)
+        return program
+
+    def __setitem__(self, key, program) -> None:
+        self._items[key] = weakref.ref(program) if self._weak else program
+        self._items.move_to_end(key)
+        while MAX_PROGRAMS is not None and len(self._items) > MAX_PROGRAMS:
+            old = self._program(self._items.popitem(last=False)[1])
+            if old is not None:
+                old.release()

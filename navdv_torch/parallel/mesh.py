@@ -233,7 +233,7 @@ def make_navigate_sharded(cfg: SimConfig, mesh: Mesh, fam_impl: str = "kernel",
         out = gather_data(mesh, [*final, *rec])
         return AgentState(*out[:len(final)]), StepRecord(*out[len(final):])
 
-    run.prepare, run.captured = nav.prepare, nav.captured
+    run.prepare, run.captured, run.release = nav.prepare, nav.captured, nav.release
     return run
 
 

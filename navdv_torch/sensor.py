@@ -79,6 +79,25 @@ def bilinear_sample(landscape: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor)
     )
 
 
+def make_render_panorama_gather(sensor: SensorConfig, device=None):
+    """Gather-based reference renderer: ``render(landscape f32[H, W], xy
+    f32[..., 2], theta f32[...]) -> f32[..., R, A]``, four taps per polar
+    sample straight from the landscape (:func:`bilinear_sample`), with no
+    window. Leading dims batch poses. The kernels' renderer computes the
+    same function through a window (:func:`make_render_panorama`)."""
+    dev = resolve_device(device)
+    dx0, dy0 = (torch.from_numpy(a).to(dev) for a in polar_offsets(sensor))
+
+    def render(landscape: torch.Tensor, xy: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+        c = torch.cos(theta)[..., None, None]
+        s = torch.sin(theta)[..., None, None]
+        xs = xy[..., 0, None, None] + c * dx0 - s * dy0
+        ys = xy[..., 1, None, None] + s * dx0 + c * dy0
+        return bilinear_sample(landscape, xs, ys)
+
+    return render
+
+
 def _make_render(sensor: SensorConfig, hat_bf16: bool, device):
     dev = resolve_device(device)
     dx0_np, dy0_np = polar_offsets(sensor)

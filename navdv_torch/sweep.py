@@ -6,7 +6,9 @@ package's ``sweep.py``).
   rule reads); results record the port's name for the path.
 - ``SweepSpec.lib_bucket`` pads libraries to bucketed shapes, and
   ``run_sweep`` keeps one navigate function per traced configuration, as the
-  JAX package keeps one compilation.
+  JAX package keeps one compilation; the captured runs of at most
+  ``capture.MAX_PROGRAMS`` configurations keep their graphs
+  (:class:`navdv_torch.capture.ProgramCache`).
 - Trials within a cell run as one batch; the episode stops once every trial
   is done (``early_exit``).
 - Per-cell results land on disk atomically, so a sweep resumes at cell
@@ -41,6 +43,7 @@ import torch
 import torch.distributed as dist
 
 from navdv_torch.agent import AgentState, init_state, make_navigate_batch, make_statics, resolve_fam_impl
+from navdv_torch.capture import ProgramCache
 from navdv_torch.checkpoint import load_results, save_results
 from navdv_torch.config import AgentConfig, ScanConfig, SensorConfig, SimConfig
 from navdv_torch.device import as_tensor, resolve_device
@@ -190,7 +193,7 @@ def run_cell(
     start_anywhere: bool = False,
     recall_check_trials: int = 0,
     lib_bucket: int = 0,
-    nav_cache: dict | None = None,
+    nav_cache: ProgramCache | None = None,
     device=None,
 ) -> dict:
     """Train on the route, run ``n_trials`` randomized recall episodes,
@@ -208,11 +211,12 @@ def run_cell(
     done), not ``n_trials * max_steps``.
 
     ``lib_bucket > 1`` pads the library up to that multiple; ``nav_cache``
-    (a dict the caller keeps across cells) reuses one navigate fn for every
-    cell whose configuration differs only in ``capture_spacing``. On
-    ``"infomax"`` the training dose comes from the true view count
-    (``resolve_infomax_epochs``); a dose left at AUTO keeps the spacing in
-    the cache key, since the training length derives from it.
+    (a :class:`~navdv_torch.capture.ProgramCache` the caller keeps across
+    cells) reuses one navigate fn for every cell whose configuration
+    differs only in ``capture_spacing``, and frees the graphs of the runs
+    it evicts. On ``"infomax"`` the training dose comes from the true view
+    count (``resolve_infomax_epochs``); a dose left at AUTO keeps the
+    spacing in the cache key, since the training length derives from it.
 
     With ``mesh`` (:func:`navdv_torch.parallel.make_mesh`) the trials are
     split over its data axis (``n_trials`` a multiple of its size) and the
@@ -234,7 +238,7 @@ def run_cell(
     st = make_statics(land, lib, route, dev)
     starts, thetas = make_trials(route, cfg, n_trials, seed=seed, start_anywhere=start_anywhere)
     if nav_cache is None:
-        nav_cache = {}
+        nav_cache = ProgramCache()
     # capture_spacing only sets the library's shape, which lib_bucket
     # normalizes: every other field makes the function (save an infomax
     # dose left at AUTO, whose training length derives from the spacing)
@@ -359,7 +363,7 @@ def run_sweep(
     land = as_tensor(landscape, torch.float32, dev)
     os.makedirs(out_dir, exist_ok=True)
     all_results = {}
-    nav_cache: dict = {}
+    nav_cache = ProgramCache()
     for idx, (key, cfg, params) in enumerate(spec.cells()):
         if shard is not None and idx % shard[1] != shard[0]:
             continue
