@@ -171,7 +171,7 @@ Phases, one JSON line each:
             two configurations, at most MAX_PROGRAMS graphs alive at the
             end; the sweep's results and launch counts equal to the
             unbounded run's;
-21. graphs — (last) the JAX package's compiled programs as CUDA graphs
+21. graphs — the JAX package's compiled programs as CUDA graphs
             (``navdv_torch/capture.py``), each against its eager
             counterpart on the same inputs: one window-gather launch, then
             ``make_navigate_batch`` against ``make_navigate_batch_fn`` on
@@ -191,11 +191,25 @@ Phases, one JSON line each:
             seconds, and per chunk size the early exit's time (median and
             quartiles of CHUNK_ROUNDS runs, the chunk sizes in round robin).
             The earlier phases already run captured episodes, so their
-            launch counts are replays' counts.
+            launch counts are replays' counts;
+22. bench — (last) the port's bench as a user runs it, each command in a
+            process of its own: ``python -m navdv_torch.cli bench --all``
+            (the 7 headline and latency lines of configs 1-4 and config 1
+            at B=1/16/64, then the kernel parity gates at config 1 (SSD)
+            and config 3 (NCC), the sector gate, the fft and roll precision
+            gates) and ``... bench --big-landscape 4096 --repeats 1``. Each
+            line is echoed, then checked: exit code 0, no error line,
+            ``device`` "gpu" and the card named, ``ok: true`` on every line
+            but the B=1 and B=16 latency lines, which carry the JAX bench's
+            ``gate`` marker; the window and render kernels launched on
+            every line, the min-distance kernel on the parity gates, the
+            big landscape's exact gate and at least one headline gate, the
+            lag kernel on none.
 
 Every phase line carries its ``seconds``. Then the card line, the kernels
 line (with each kernel's ``launches_by_phase``: main, lag, conv, infomax,
-parallel (summed over ranks and meshes), analysis, big_landscape; rows 1-2
+parallel (summed over ranks and meshes), analysis, big_landscape, bench
+(summed over the bench's lines); rows 1-2
 also at config 3's shapes and at 4096^2) and, last, ``{"ok":
 true, "device": ...}``. Any failed check raises and the script exits
 non-zero. Without a CUDA device it exits 2 and prints no result.
@@ -369,6 +383,13 @@ MEMORY_MAP_STRIDE = 32.0
 MEMORY_MAP_BATCH = 256
 MEMORY_TOL = 0.05
 SWEEP_TIMING = ("wall_s", "warmup_s", "agent_steps_per_s")  # host clock, not results
+# bench phase: the port's bench command, as a user runs it, and its time limit
+BENCH_RUNS = (("--all",), ("--big-landscape", str(BIG_SIZE), "--repeats", "1"))
+BENCH_TIMEOUT_S = 600
+BENCH_HEADLINE = "agent-steps/sec/chip"
+# --all's lines after its 7 headline and latency lines, in bench.py's order
+BENCH_GATES = ("pallas_parity_gate", "pallas_parity_gate", "sector_parity_gate",
+               "fft_precision_gate", "roll_precision_gate")
 GOLDEN = Path(__file__).resolve().parent / "tests" / "golden_oracle_small.npz"
 
 
@@ -2371,6 +2392,73 @@ def run_golden() -> None:
     require(abs(n_steps - len(gold["xy"])) <= 5, "golden: step count off by more than 5")
 
 
+def bench_lines(extra: tuple[str, ...]) -> list[dict]:
+    """``python -m navdv_torch.cli bench <extra>`` in a process of its own;
+    every line of its standard output echoed here and parsed. Fails on a
+    non-zero exit (its standard error printed) or a line that is not JSON."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [str(root), os.environ.get("PYTHONPATH")])))
+    out = subprocess.run([sys.executable, "-m", "navdv_torch.cli", "bench", *extra], cwd=root,
+                         env=env, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    lines = [ln for ln in out.stdout.splitlines() if ln.strip()]
+    for ln in lines:
+        print(ln, flush=True)
+    if out.returncode != 0:
+        print(f"--- bench {' '.join(extra)} exited {out.returncode}:\n{out.stderr[-3000:]}",
+              file=sys.stderr)
+    require(out.returncode == 0, f"bench {' '.join(extra)}: exit code {out.returncode}")
+    return [json.loads(ln) for ln in lines]
+
+
+def run_bench_phase() -> dict[str, int]:
+    """The port's bench (``navdv_torch.bench``) through the command line:
+    ``--all`` (configs 1-4, the config-1 latency envelope at B=1/16/64, the
+    kernel parity gates at config 1 (SSD) and 3 (NCC), the sector gate, the
+    fft and roll precision gates) and ``--big-landscape 4096 --repeats 1``.
+    Every line must name ``device: "gpu"`` and the card, carry no error and
+    read ``ok: true``, except the B=1 and B=16 latency lines, which carry
+    the JAX bench's ``gate`` marker instead; every line must launch the
+    window and render kernels, the parity gates and the big landscape's
+    exact gate the min-distance kernel, and no line the lag kernel.
+    Returns the launches summed over the lines (each line counts its own
+    from 0)."""
+    t0 = time.perf_counter()
+    lines = {extra[0]: bench_lines(extra) for extra in BENCH_RUNS}
+    all_lines, big = lines["--all"], lines["--big-landscape"]
+    metrics = [ln.get("metric") for ln in all_lines]
+    require(metrics == [BENCH_HEADLINE] * 7 + list(BENCH_GATES),
+            f"bench --all: lines {metrics}")
+    require([ln.get("metric") for ln in big] == ["big_landscape_dma"],
+            f"bench --big-landscape: lines {[ln.get('metric') for ln in big]}")
+    launches = {name: 0 for name in ops.launch_counts()}
+    for ln in all_lines + big:
+        what = f"bench line {ln.get('metric')} config {ln.get('config')} batch {ln.get('batch')}"
+        require("error" not in ln, f"{what}: error {ln.get('error')}")
+        require(ln.get("device") == "gpu" and bool(ln.get("card")),
+                f"{what}: device {ln.get('device')!r}, card {ln.get('card')!r}")
+        if "gate" in ln:
+            require(ln["metric"] == BENCH_HEADLINE and ln["batch"] < 64 and "ok" not in ln,
+                    f"{what}: gate marker {ln['gate']!r} where bench.py gives a verdict")
+        else:
+            require(ln.get("ok") is True, f"{what}: ok {ln.get('ok')}")
+        n = ln["launches"]
+        require(n["window_gather"] > 0 and n["render"] > 0,
+                f"{what}: window or render kernel not launched: {n}")
+        require(n["lag_fam"] == 0, f"{what}: the lag kernel launched: {n}")
+        if ln["metric"] in ("pallas_parity_gate", "big_landscape_dma"):
+            require(n["min_distance"] > 0, f"{what}: the min-distance kernel not launched")
+        for name in launches:
+            launches[name] += n[name]
+    require(sum(ln["launches"]["min_distance"] for ln in all_lines[:7]) > 0,
+            "bench: no exact recall gate launched the min-distance kernel")
+    emit({"phase": "bench", "lines": len(all_lines) + len(big),
+          "gated_ok": sum(ln.get("ok") is True for ln in all_lines + big),
+          "gate_markers": sum("gate" in ln for ln in all_lines + big),
+          "launches": launches, "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parallel-child", metavar="DIR", help="run one rank of the parallel phase")
@@ -2433,6 +2521,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     run_memory(dev)
     run_graphs(dev)
+    torch.cuda.empty_cache()
+    by_phase["bench"] = run_bench_phase()
 
     results["render"]["config3"] = {key: render3[key] for key in (
         "shape", "ms", "ms_in_run", "plain_ms", "bound_ms", "bound_by", "library_ms")}

@@ -5,7 +5,7 @@ Commands:
   demo     train on a route and run batched recall, writing plots (+ movie)
   sweep    run the BASELINE config-5 parameter grid with on-disk resume
   analyze  RIDF curve + familiarity/catchment map for a trained route
-  bench    not ported: the port's bench waits for ROADMAP A.7
+  bench    the benchmark harness (navdv_torch.bench: the same parser and body)
 
 Every command runs on the card unless ``--device cpu`` is given. The plots
 need matplotlib, which only the commands that plot import.
@@ -22,6 +22,7 @@ import sys
 import numpy as np
 import torch
 
+from navdv_torch import bench
 from navdv_torch.agent import FAM_IMPLS
 
 
@@ -117,9 +118,8 @@ def cmd_demo(args) -> None:
 
 
 def cmd_bench(args) -> None:
-    print("navdv_torch has no bench yet: it waits for ROADMAP A.7 (the port bench); "
-          "chip_smoke.py drives the port on the card meanwhile", file=sys.stderr)
-    raise SystemExit(2)
+    """The bench's own defended body on the arguments its parser gave."""
+    bench.run_defended(args, bench.build_parser())
 
 
 def cmd_sweep(args) -> None:
@@ -241,7 +241,8 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--out", default="out/demo")
     d.set_defaults(fn=cmd_demo)
 
-    b = sub.add_parser("bench", help="not ported: waits for ROADMAP A.7")
+    b = sub.add_parser("bench", parents=[bench.build_parser(add_help=False)],
+                       help="throughput harness with its recall and parity gates")
     b.set_defaults(fn=cmd_bench)
 
     s = sub.add_parser("sweep", help="BASELINE config-5 grid with resume")

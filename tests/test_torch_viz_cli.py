@@ -158,12 +158,12 @@ def test_cli_route_margin_scales_and_warns(capsys):
 
 
 @pytest.mark.parametrize("argv,code,match", [
-    (["bench"], 2, "A.7"),
+    (["bench", "--impl", "jnp"], 2, "invalid choice"),
     (["demo", "--impl", "jnp"], 2, "invalid choice"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, code, match, capsys):
-    """``bench`` waits for ROADMAP A.7 and exits non-zero; the JAX path names
-    are not the port's ``--impl`` choices."""
+    """The JAX path names are not the port's ``--impl`` choices, in ``bench``
+    as in ``demo``."""
     with pytest.raises(SystemExit) as e:
         main(argv)
     assert e.value.code == code
