@@ -1,6 +1,7 @@
 """Where one episode of the port spends its time on the card.
 
-    python3 chip_profile.py [--fam-impl kernel|fft|roll|conv|infomax] [--config 1|2|3|4] [--eager]
+    python3 chip_profile.py [--fam-impl kernel|fft|roll|conv|infomax] [--config 1|2|3|4]
+                            [--eager | --split]
 
 The cells are those ``chip_smoke.py`` drives: configs 1 and 4 (50 views,
 1024 agents), config 2 (500 views, 512 agents) and config 3 (50 views, 256
@@ -22,6 +23,16 @@ goes to ``build/traces/``. The episode is ``make_navigate_batch``'s,
 replayed as CUDA graphs; ``--eager`` profiles ``make_navigate_batch_fn``'s
 instead, launched op by op from the host. Exits non-zero without a card or
 when the profiler records no device activity.
+
+``--split`` (ROADMAP C.14) instead cuts one synchronized captured episode
+into its parts, as ``make_navigate_batch`` runs its full loop: the copy-in
+of the states, of the statics and of ``aux`` into the graph's buffers, the
+replay, the copy-out of the results (device time of each from CUDA events),
+and the sync (the host clock from the first copy to the return of
+``torch.cuda.synchronize()``, less those parts); ``lib_prepare``, which a
+call with ``aux=None`` adds before its copy-in, is timed apart. Medians of
+SPLIT_RUNS episodes, each part's share of the median wall time, and the
+bytes each copy moves.
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ from chip_smoke import (
     card_line,
     exact_cfg,
 )
+from navdv_torch.capture import Captured, _flatten, copy_out
 from navdv_torch.agent import (
     init_state,
     make_navigate_batch,
@@ -57,6 +69,8 @@ from navdv_torch.trials import make_trials
 from navdv_torch.utils.profiling import top_ops, trace
 
 TRACE_DIR = Path(__file__).resolve().parent / "build" / "traces"
+SPLIT_RUNS = 25
+SPLIT_PARTS = ("states_in", "statics_in", "aux_in", "replay", "copy_out")
 
 
 def cell(fam_impl: str, config: int):
@@ -70,13 +84,78 @@ def cell(fam_impl: str, config: int):
     return (*bench_config(2, CONFIG2_VIEWS), CONFIG2_BATCH)
 
 
+def _event() -> torch.cuda.Event:
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def _leaves(tree) -> list:
+    leaves: list = []
+    _flatten(tree, leaves)
+    return leaves
+
+
+def split_episode(cfg, fam_impl: str, st, states0) -> dict:
+    """The parts of one synchronized captured episode (see ``--split``):
+    the full loop captured as ``make_navigate_batch`` captures it, its
+    inputs copied in group by group around CUDA events."""
+    eager = make_navigate_batch_fn(cfg, fam_impl)
+    prepare = eager.lib_prepare
+    aux = None if prepare is None else prepare(st)
+    groups = (states0, st, aux)
+    sizes = [len(_leaves(x)) for x in groups]
+    graph = Captured(eager, states0.xy.device, "episode").graph(*groups)
+    parts = {k: [] for k in (*SPLIT_PARTS, "sync", "wall", "lib_prepare")}
+    for _ in range(SPLIT_RUNS):
+        if prepare is not None:
+            torch.cuda.synchronize()
+            start = _event()
+            prepare(st)
+            end = _event()
+            torch.cuda.synchronize()
+            parts["lib_prepare"].append(start.elapsed_time(end))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        leaves = _leaves(groups)  # as Captured.__call__ flattens its inputs
+        events = [_event()]
+        lo = 0
+        for n in sizes:  # the copy-in of Graph._load, one input group at a time
+            for dst, src in zip(graph._static[lo:lo + n], leaves[lo:lo + n]):
+                dst.copy_(src)
+            lo += n
+            events.append(_event())
+        out = graph.replay()
+        events.append(_event())
+        copy_out(out)
+        events.append(_event())
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        device = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        for name, ms in zip(SPLIT_PARTS, device):
+            parts[name].append(ms)
+        parts["sync"].append(wall - sum(device))
+        parts["wall"].append(wall)
+    med = {k: float(np.median(v)) if v else None for k, v in parts.items()}
+    nbytes = [sum(t.numel() * t.element_size() for t in _leaves(x)) for x in groups]
+    return {
+        "ms": med, "share_of_wall": {k: med[k] / med["wall"] for k in (*SPLIT_PARTS, "sync")},
+        "statics_and_aux_in_share": (med["statics_in"] + med["aux_in"]) / med["wall"],
+        "leaves": dict(zip(("states", "statics", "aux"), sizes)),
+        "bytes": dict(zip(("states", "statics", "aux"), nbytes)), "runs": SPLIT_RUNS,
+    }
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--fam-impl", choices=("kernel", "fft", "roll", "conv", "infomax"),
                         default="kernel")
     parser.add_argument("--config", type=int, choices=(1, 2, 3, 4), default=None)
-    parser.add_argument("--eager", action="store_true",
-                        help="profile the eager episode instead of the captured one")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--eager", action="store_true",
+                      help="profile the eager episode instead of the captured one")
+    mode.add_argument("--split", action="store_true",
+                      help="split one synchronized captured episode into its parts (C.14)")
     args = parser.parse_args()
     config = args.config or {"roll": 2, "infomax": 1}.get(args.fam_impl, 4)
     if not torch.cuda.is_available():
@@ -87,6 +166,13 @@ def main() -> int:
     st = make_statics(land, lib, route)
     starts, thetas = make_trials(route, cfg, batch, seed=0)
     states0 = init_state(starts, thetas)
+    if args.split:
+        print(json.dumps({
+            "phase": "split", "card": card_line(), "fam_impl": args.fam_impl, "config": config,
+            "library_views": int(lib.views.shape[0]), "batch": batch,
+            "max_steps": cfg.agent.max_steps, **split_episode(cfg, args.fam_impl, st, states0),
+        }), flush=True)
+        return 0
     run = (make_navigate_batch_fn if args.eager else make_navigate_batch)(cfg, args.fam_impl)
     prepare = run.lib_prepare if args.eager else run.prepare
     aux = None if prepare is None else prepare(st)

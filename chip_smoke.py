@@ -101,10 +101,10 @@ Phases, one JSON line each:
 15. infomax — (after conv) the learned memory at config 1's width (1024
             agents, AUTO dose) on the main library: trained on the card
             (seconds), one epoch on the card within 1e-4 (relative
-            Frobenius) of the CPU's from the same initial weights (the full
-            dose's difference reported), the ``.npz`` checkpoint giving
-            bit-equal ``step.fam``, one episode (success reported only),
-            window and render launched and no distance kernel;
+            Frobenius) of the CPU's from the same initial weights, the
+            ``.npz`` checkpoint giving bit-equal ``step.fam``, one episode
+            (success reported only), window and render launched and no
+            distance kernel;
 16. analysis — (after sweep) config 1 as shipped: the RIDF valley within
             one fine bin of 0 on ``"kernel"`` and ``"auto"``, the stride-8
             familiarity map (3,844 positions, 4 batches of 1024) on
@@ -192,7 +192,25 @@ Phases, one JSON line each:
             quartiles of CHUNK_ROUNDS runs, the chunk sizes in round robin).
             The earlier phases already run captured episodes, so their
             launch counts are replays' counts;
-22. bench — (last) the port's bench as a user runs it, each command in a
+22. graft_entry — (after graphs) the entry points of
+            ``navdv_torch/graft_entry.py`` (the counterpart of the repo-root
+            ``__graft_entry__.py``) on their tiny world (96^2 blobs, a
+            4x24 sensor, 12 headings, ~16 library views): ``entry()``'s
+            step of 8 agents, captured, must equal the eager step bit for
+            bit and launch window, render and min distance (counts from 0
+            around it); window and render at its shapes (B=8, and B=2, the
+            slice each rank of the 8-rank gate's (8, 1) mesh renders)
+            bit-equal to their plain versions, min distance on its
+            candidate rows within rtol/atol 1e-6 of its plain version, each
+            timed; then ``python -m navdv_torch.graft_entry dryrun 8`` and
+            ``dryrun <cards>`` as processes, every line echoed: exit code
+            0, the ``dryrun_multichip ok`` line last with every mesh of
+            ``mesh_shapes``, NCCL with every mesh captured where the ranks
+            have a card each, gloo otherwise with the data meshes captured
+            and the lib meshes eager, window and render launched on every
+            rank of every mesh and no distance kernel (the gate runs
+            ``fft``);
+23. bench — (last) the port's bench as a user runs it, each command in a
             process of its own: ``python -m navdv_torch.cli bench --all``
             (the 7 headline and latency lines of configs 1-4 and config 1
             at B=1/16/64, then the kernel parity gates at config 1 (SSD)
@@ -208,9 +226,10 @@ Phases, one JSON line each:
 
 Every phase line carries its ``seconds``. Then the card line, the kernels
 line (with each kernel's ``launches_by_phase``: main, lag, conv, infomax,
-parallel (summed over ranks and meshes), analysis, big_landscape, bench
-(summed over the bench's lines); rows 1-2
-also at config 3's shapes and at 4096^2) and, last, ``{"ok":
+parallel (summed over ranks and meshes), analysis, big_landscape,
+graft_entry (the entry step and the two gates' ranks, summed), bench
+(summed over the bench's lines); rows 1-2 also at config 3's shapes and at
+4096^2, rows 1-3 at the graft entry's shapes) and, last, ``{"ok":
 true, "device": ...}``. Any failed check raises and the script exits
 non-zero. Without a CUDA device it exits 2 and prints no result.
 """
@@ -228,7 +247,6 @@ import math
 import os
 import re
 import shutil
-import socket
 import subprocess
 import sys
 import tempfile
@@ -239,7 +257,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from navdv_torch import _build, agent, capture, ops, sweep
+from navdv_torch import _build, agent, capture, graft_entry, ops, sweep
 from navdv_torch.analysis import (
     _AUX_CACHE,
     _STATICS_CACHE,
@@ -273,6 +291,7 @@ from navdv_torch.capture import Captured, ProgramCache
 from navdv_torch.checkpoint import load_infomax, save_infomax
 from navdv_torch.device import resolve_device
 from navdv_torch.familiarity import (
+    PAD_PENALTY,
     LibraryPack,
     make_familiarity_jnp,
     pack_library,
@@ -303,6 +322,7 @@ from navdv_torch.oracle import resample_route
 from navdv_torch.parallel import (
     collective_counts,
     init_distributed,
+    launch_ranks,
     make_mesh,
     make_navigate_sharded,
     reset_collective_counts,
@@ -390,6 +410,8 @@ BENCH_HEADLINE = "agent-steps/sec/chip"
 # --all's lines after its 7 headline and latency lines, in bench.py's order
 BENCH_GATES = ("pallas_parity_gate", "pallas_parity_gate", "sector_parity_gate",
                "fft_precision_gate", "roll_precision_gate")
+GRAFT_DRYRUN_TIMEOUT_S = 600
+GRAFT_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 GOLDEN = Path(__file__).resolve().parent / "tests" / "golden_oracle_small.npz"
 
 
@@ -1485,10 +1507,10 @@ def run_infomax(cfg, st, states0, poses) -> dict:
     """The learned memory at config 1's width (B=1024, cutoff 0) on the main
     episode's library with the AUTO dose: training on the card (seconds),
     one epoch on the card against the CPU from the same initial weights and
-    library (relative Frobenius difference <= 1e-4; the full dose's
-    reported), the checkpoint round trip (bit-equal ``step.fam``), one
-    episode on the main trials (success reported only: another model than
-    perfect memory; window and render launched, no distance kernel).
+    library (relative Frobenius difference <= 1e-4), the checkpoint round
+    trip (bit-equal ``step.fam``), one episode on the main trials (success
+    reported only: another model than perfect memory; window and render
+    launched, no distance kernel).
     Returns the episode's launch counts."""
     t_phase = time.perf_counter()
     scan, p = cfg.scan, cfg.sensor.n_pixels
@@ -1507,11 +1529,6 @@ def run_infomax(cfg, st, states0, poses) -> dict:
     one_card = train_infomax(st.lib, m, scan.infomax_eta, 1, scan.infomax_seed, w0=w0)
     one_cpu = train_infomax(lib_cpu, m, scan.infomax_eta, 1, scan.infomax_seed, w0=w0)
     rel_one = _rel_fro(one_card.w, one_cpu.w)
-    t0 = time.perf_counter()
-    full_cpu = train_infomax(lib_cpu, m, scan.infomax_eta, scan.infomax_epochs, scan.infomax_seed,
-                             capture_spacing=cfg.capture_spacing)
-    cpu_train_s = time.perf_counter() - t0
-    rel_full = _rel_fro(pack.w, full_cpu.w)
 
     with tempfile.TemporaryDirectory() as tmp:
         path = str(Path(tmp) / "infomax.npz")
@@ -1536,8 +1553,7 @@ def run_infomax(cfg, st, states0, poses) -> dict:
     emit({
         "phase": "infomax", "config": 1, "fam_impl": "infomax", "batch": BATCH, "max_steps": t_max,
         "library_views": nl, "units": m, "updates": updates, "train_s": train_s,
-        "train_updates_per_s": updates / train_s, "cpu_train_s": cpu_train_s,
-        "one_epoch_card_vs_cpu_rel_fro": rel_one, "full_dose_card_vs_cpu_rel_fro": rel_full,
+        "train_updates_per_s": updates / train_s, "one_epoch_card_vs_cpu_rel_fro": rel_one,
         "checkpoint_bytes": size, "checkpoint_fam_bit_equal": ckpt_equal,
         "success_rate": rate, "episode_s": episode_s,
         "agent_steps_per_s": BATCH * t_max / episode_s, "launches": counts,
@@ -1689,43 +1705,12 @@ def run_parallel(main_ref: dict, roll_ref: dict, sweep_ref: dict) -> dict:
 
 
 def launch_parallel_children(tmp: str, world: int) -> list[dict]:
-    """Start ``world`` ranks as torchrun would (``RANK``, ``WORLD_SIZE``,
-    ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), each logging to a
-    file; fail, and stop them all, as soon as one exits non-zero or the
-    phase's time runs out. Returns each rank's JSON results."""
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
-               WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
-    procs, logs = [], []
-    try:
-        for r in range(world):
-            logs.append(open(Path(tmp) / f"rank{r}.log", "w"))
-            procs.append(subprocess.Popen(
-                [sys.executable, str(Path(__file__).resolve()), "--parallel-child", tmp],
-                env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=logs[-1],
-                stderr=subprocess.STDOUT))
-        deadline = time.perf_counter() + PARALLEL_TIMEOUT_S
-        while any(p.poll() is None for p in procs):
-            if any(p.returncode not in (None, 0) for p in procs):
-                break
-            if time.perf_counter() > deadline:
-                break
-            time.sleep(0.2)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-        for f in logs:
-            f.close()
-    codes = [p.returncode for p in procs]
-    if codes != [0] * world:
-        for r in range(world):
-            tail = (Path(tmp) / f"rank{r}.log").read_text()[-3000:]
-            print(f"--- parallel rank {r} exited {codes[r]}:\n{tail}", file=sys.stderr)
-        raise AssertionError(f"parallel: ranks exited {codes}")
+    """Start ``world`` ranks of this script's ``--parallel-child`` as
+    torchrun would (``parallel.launch_ranks``), each logging to a file;
+    fail, and stop them all, as soon as one exits non-zero or the phase's
+    time runs out. Returns each rank's JSON results."""
+    launch_ranks([sys.executable, str(Path(__file__).resolve()), "--parallel-child", tmp], world,
+                 tmp, PARALLEL_TIMEOUT_S)
     return [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(world)]
 
 
@@ -2353,6 +2338,138 @@ def run_graphs(dev: torch.device) -> dict:
     return out
 
 
+def check_tiny_min_distance(cfg: SimConfig, st, states, dev: torch.device) -> dict:
+    """The min-distance kernel on the candidate rows ``entry()``'s step
+    scores (its pooled panorama's views at every scan lag against the
+    tiny library) within rtol/atol 1e-6 of its plain version, timed."""
+    pano = make_render_batch(cfg.sensor, dev)(st.landscape, states.xy, states.theta)
+    lags = scan_lag_sets(cfg.scan)[0]
+    cand = make_views_from_pooled(cfg.sensor, lags, dev)(make_pooled_panorama(cfg.sensor, dev)(pano))
+    rows = cand.reshape(-1, cfg.sensor.n_pixels).contiguous()
+    lib = st.lib
+    args = (rows, lib.flat, lib.sq + (1.0 - lib.valid) * PAD_PENALTY, -2.0, True)
+    got, want = min_distance_rows(*args), min_distance_rows_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    require(torch.allclose(got, want, rtol=1e-6, atol=1e-6),
+            f"graft_entry: min distance vs its plain version {err} (rtol/atol 1e-6)")
+    n_rows, p = rows.shape
+    nl = lib.flat.shape[0]
+    b_ms, b_by = bound(nbytes(rows, lib.flat) + nl * 4 + n_rows * 4,
+                       2.0 * n_rows * nl * p + 2.0 * n_rows * p)
+    return dict(shape=[n_rows, nl, p], max_abs_err=err, tolerance="rtol/atol 1e-6 vs plain",
+                ms=time_ms(lambda: min_distance_rows(*args)),
+                plain_ms=time_ms(lambda: min_distance_rows_plain(*args)),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def check_tiny_kernels(cfg: SimConfig, st, states, dev: torch.device) -> dict:
+    """Window and render (both modes) at the graft entry's shapes, B=8 and
+    B=2, and min distance at B=8: rows for the kernels line, keyed by B."""
+    land = st.landscape
+    wsz = window_geometry(cfg.sensor)[1]
+    rng = np.random.default_rng(0)
+    out = {"window_gather": {}, "render": {}}
+    for b in (8, 2):
+        xy, theta = states.xy[:b], states.theta[:b]
+        by_np, bx_np = big_corners(xy, wsz, land.shape[0])
+        row, wins = check_window(land, by_np, bx_np, wsz, wsz)
+        out["window_gather"][f"b{b}"] = {**row, "shape": [b, wsz, wsz]}
+        fxy = torch.stack([xy[:, 0] - torch.from_numpy(bx_np).to(dev).float(),
+                           xy[:, 1] - torch.from_numpy(by_np).to(dev).float(),
+                           torch.cos(theta), torch.sin(theta)], dim=1)
+        out["render"][f"b{b}"] = check_render(wins, cfg.sensor, dev, rng, fxy=fxy)
+    out["min_distance"] = {"b8": check_tiny_min_distance(cfg, st, states, dev)}
+    return {name: {b: {k: r[k] for k in GRAFT_KEYS} for b, r in rows.items()}
+            for name, rows in out.items()}
+
+
+def graft_dryrun(n: int) -> dict:
+    """``python -m navdv_torch.graft_entry dryrun n``, every line echoed;
+    exit code 0 and the ok line last. Returns its JSON summary line."""
+    lines = module_lines(["navdv_torch.graft_entry", "dryrun", str(n)], GRAFT_DRYRUN_TIMEOUT_S)
+    require(bool(lines) and lines[-1].startswith("dryrun_multichip ok: impl=fft "),
+            f"graft_entry dryrun {n}: no ok line last")
+    summary = [json.loads(ln)["dryrun_multichip"] for ln in lines if ln.startswith("{")]
+    require(len(summary) == 1, f"graft_entry dryrun {n}: {len(summary)} summary lines")
+    return summary[0]
+
+
+def check_dryrun(n: int, s: dict, cards: int) -> dict[str, int]:
+    """The gate's summary against what its layout implies; returns its
+    launches summed over ranks and meshes."""
+    backend = "nccl" if n <= cards else "gloo"
+    require(s["ranks"] == n and s["backend"] == backend and s["device"] == "cuda",
+            f"graft_entry dryrun {n}: ranks {s['ranks']}, backend {s['backend']} (want "
+            f"{backend}), device {s['device']}")
+    shapes = [(m["n_data"], m["n_lib"]) for m in s["meshes"]]
+    require(shapes == graft_entry.mesh_shapes(n), f"graft_entry dryrun {n}: meshes {shapes}")
+    launches = {name: 0 for name in ops.launch_counts()}
+    for m in s["meshes"]:
+        tag = f"dryrun {n} mesh ({m['n_data']},{m['n_lib']})"
+        captured = backend == "nccl" or m["n_lib"] == 1  # gloo's collectives run on the host
+        require(m["captured"] == [captured] * n, f"{tag}: captured {m['captured']}")
+        require(m["lib_pmin"] == [2 * s["steps"] if m["n_lib"] > 1 else 0] * n,
+                f"{tag}: MIN collectives per rank {m['lib_pmin']}")
+        for rank, counts in enumerate(m["launches"]):
+            require(counts["window_gather"] > 0 and counts["render"] > 0,
+                    f"{tag}: rank {rank} launched no window or render kernel: {counts}")
+            require(counts["min_distance"] == 0 and counts["lag_fam"] == 0,
+                    f"{tag}: rank {rank} launched a distance kernel on fft: {counts}")
+            for name in launches:
+                launches[name] += counts[name]
+    return launches
+
+
+def run_graft_entry(dev: torch.device) -> tuple[dict, dict]:
+    """The graft_entry phase (see the module docstring): returns its
+    launches (the entry step's and the two gates' ranks') and the kernel
+    rows at its shapes."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    fn, (states0, st) = graft_entry.entry()
+    setup_s = time.perf_counter() - t0
+    cfg = graft_entry.tiny_config()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    new = fn(states0, st)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    for name in MAIN_KERNELS:
+        require(launches[name] > 0, f"graft_entry: entry()'s step launched no {name}")
+    require(fn.captured, "graft_entry: entry()'s step is not captured on the card")
+    replay_s = _wall_s(lambda: fn(states0, st))
+    eager_s = _wall_s(lambda: fn.eager(states0, st))
+    want = fn.eager(states0, st)
+    require(all(torch.equal(a, b) for a, b in zip(new, want)),
+            "graft_entry: the captured step differs from the eager step in "
+            f"{[f for f, a, b in zip(new._fields, new, want) if not torch.equal(a, b)]}")
+    require(all(torch.equal(a, b) for a, b in zip(fn(states0, st), new)),
+            "graft_entry: a replay gave another result")
+    fn.release()
+    rows = check_tiny_kernels(cfg, st, states0, dev)
+    del fn, st, states0, new, want
+    torch.cuda.empty_cache()
+
+    cards = torch.cuda.device_count()
+    gates = {}
+    for n in dict.fromkeys((8, cards)):
+        t0 = time.perf_counter()
+        summary = graft_dryrun(n)
+        gate_launches = check_dryrun(n, summary, cards)
+        for name in launches:
+            launches[name] += gate_launches[name]
+        gates[str(n)] = {**summary, "seconds": time.perf_counter() - t0,
+                         "launches": gate_launches}
+    emit({"phase": "graft_entry", "batch": graft_entry.BATCH, "setup_s": setup_s,
+          "first_call_s": first_s, "replay_s": replay_s, "eager_s": eager_s,
+          "kernels": rows, "dryrun": gates, "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    return launches, rows
+
+
 def run_golden() -> None:
     """The small parity world of the test suite: the port's own library and
     a one-agent episode on the card against the frozen float64 fixture, at
@@ -2392,23 +2509,30 @@ def run_golden() -> None:
     require(abs(n_steps - len(gold["xy"])) <= 5, "golden: step count off by more than 5")
 
 
-def bench_lines(extra: tuple[str, ...]) -> list[dict]:
-    """``python -m navdv_torch.cli bench <extra>`` in a process of its own;
-    every line of its standard output echoed here and parsed. Fails on a
-    non-zero exit (its standard error printed) or a line that is not JSON."""
+def module_lines(args: list[str], timeout: float) -> list[str]:
+    """``python -m <args>`` in a process of its own, from the repo root;
+    every line of its standard output echoed here. Fails on a non-zero exit
+    (its standard error printed). Returns the non-empty lines."""
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         filter(None, [str(root), os.environ.get("PYTHONPATH")])))
-    out = subprocess.run([sys.executable, "-m", "navdv_torch.cli", "bench", *extra], cwd=root,
-                         env=env, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    out = subprocess.run([sys.executable, "-m", *args], cwd=root, env=env, capture_output=True,
+                         text=True, timeout=timeout)
     lines = [ln for ln in out.stdout.splitlines() if ln.strip()]
     for ln in lines:
         print(ln, flush=True)
+    what = " ".join(args)
     if out.returncode != 0:
-        print(f"--- bench {' '.join(extra)} exited {out.returncode}:\n{out.stderr[-3000:]}",
-              file=sys.stderr)
-    require(out.returncode == 0, f"bench {' '.join(extra)}: exit code {out.returncode}")
-    return [json.loads(ln) for ln in lines]
+        print(f"--- {what} exited {out.returncode}:\n{out.stderr[-3000:]}", file=sys.stderr)
+    require(out.returncode == 0, f"{what}: exit code {out.returncode}")
+    return lines
+
+
+def bench_lines(extra: tuple[str, ...]) -> list[dict]:
+    """``python -m navdv_torch.cli bench <extra>``, every line parsed (a
+    line that is not JSON fails)."""
+    return [json.loads(ln) for ln in module_lines(["navdv_torch.cli", "bench", *extra],
+                                                  BENCH_TIMEOUT_S)]
 
 
 def run_bench_phase() -> dict[str, int]:
@@ -2522,12 +2646,16 @@ def main(argv=None) -> int:
     run_memory(dev)
     run_graphs(dev)
     torch.cuda.empty_cache()
+    by_phase["graft_entry"], graft_rows = run_graft_entry(dev)
+    torch.cuda.empty_cache()
     by_phase["bench"] = run_bench_phase()
 
     results["render"]["config3"] = {key: render3[key] for key in (
         "shape", "ms", "ms_in_run", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     for name, rows in big.items():
         results[name]["big_landscape"] = rows
+    for name, rows in graft_rows.items():
+        results[name]["graft_entry"] = rows
     kernels = [
         {"name": name, "route": r["route"], "source": r["source"], "replaces": r["replaces"],
          "launches": launches[name][0], "launches_in": launches[name][1],
@@ -2535,7 +2663,7 @@ def main(argv=None) -> int:
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
-         **{key: r[key] for key in ("config3", "big_landscape") if key in r}}
+         **{key: r[key] for key in ("config3", "big_landscape", "graft_entry") if key in r}}
         for name, r in results.items()
     ]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

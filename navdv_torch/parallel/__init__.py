@@ -3,7 +3,7 @@ JAX package's ``navdv_tpu.parallel``): data-parallel agents, a library
 axis combined by ``all_reduce(MIN)`` inside every step, sweep cells spread
 over ranks, and the multi-process entry."""
 
-from navdv_torch.parallel.distributed import global_mesh, init_distributed
+from navdv_torch.parallel.distributed import global_mesh, init_distributed, launch_ranks
 from navdv_torch.parallel.mesh import (
     DATA_AXIS,
     LIB_AXIS,
@@ -26,6 +26,7 @@ __all__ = [
     "gather_data",
     "global_mesh",
     "init_distributed",
+    "launch_ranks",
     "make_mesh",
     "make_navigate_cells",
     "make_navigate_sharded",

@@ -20,6 +20,9 @@ import datetime
 import logging
 import os
 import socket
+import subprocess
+import time
+from pathlib import Path
 
 import torch
 import torch.distributed as dist
@@ -46,6 +49,53 @@ def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
+
+
+def launch_ranks(argv: list[str], world: int, log_dir, budget_s: float, cwd=None,
+                 watch=None) -> None:
+    """Run ``argv`` as ``world`` ranks on this host, as torchrun would start
+    them (``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``, ``LOCAL_WORLD_SIZE``,
+    ``MASTER_ADDR``, ``MASTER_PORT`` on a free localhost port), rank r
+    logging to ``log_dir/rank<r>.log``, and wait for every rank to exit 0.
+
+    ``watch()``, if given, runs every 0.1 s while they run (to follow a
+    log) and may return a line that says how far they got. Raises
+    RuntimeError, after stopping every rank, as soon as one exits non-zero
+    (naming it, with its log's tail) or when ``budget_s`` seconds run out
+    (naming the budget and ``watch``'s last line)."""
+    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
+               WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
+    logs = [Path(log_dir) / f"rank{r}.log" for r in range(world)]
+    procs, files = [], []
+    seen = None
+    try:
+        for r, log in enumerate(logs):
+            files.append(open(log, "w"))
+            procs.append(subprocess.Popen(argv, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                                          cwd=cwd, stdout=files[-1], stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + budget_s
+        while True:
+            if watch is not None:
+                seen = watch() or seen
+            codes = [p.poll() for p in procs]
+            if all(c == 0 for c in codes):
+                return
+            failed = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            if failed:
+                r = failed[0]
+                raise RuntimeError(f"rank {r} of {world} exited {codes[r]}; the tail of its "
+                                   f"log:\n{logs[r].read_text()[-3000:]}")
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"the {world} ranks exceeded their {budget_s:.0f}s budget; "
+                                   f"last seen: {seen or 'nothing yet'}")
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in files:
+            f.close()
 
 
 def _rank_device(device, backend: str | None) -> tuple[torch.device, str]:
