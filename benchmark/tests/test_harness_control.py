@@ -1,0 +1,35 @@
+"""The control fails where the program passes, at a size a test run holds:
+the configurations as shipped, a few agents, on the CPU. The control is the
+reference computed in float32 in the program's place (and the library
+pooled from fp8 in place of bf16); at the cells' own size it is read on the
+card by ``benchmark/calibrate.py``."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import pytest
+
+import fixture  # noqa: F401  (puts the harness and the program on the path)
+
+from harness import drive
+from harness.cells import find_cell
+
+SMALL = {"fft_lib50_b1024": {"batch": 16, "episodes": 2, "poses": 512},
+         "roll_lib500_b512": {"batch": 2, "episodes": 1, "poses": 48}}
+
+
+@pytest.mark.parametrize("name", sorted(SMALL))
+def test_the_control_reads_above_the_limits(name):
+    cell = find_cell(name)
+    small = SMALL[name]
+    traffic = dict(cell.traffic, batch=small["batch"],
+                   check={"episodes": small["episodes"], "poses": small["poses"]})
+    cell = dataclasses.replace(cell, traffic=traffic)
+    result = drive.run_single(cell, 2**31 + 99, 0.1, False, "cpu", 0.0, lambda: None,
+                              control=True)
+    n, limits = result["numbers"], cell.config["limits"]
+    assert result["correct"], result["checks"]
+    assert n["lib_err_control"] > limits["lib_err"]
+    assert (n["fam_err_control"] > limits["fam_err"]
+            or n["decision_gap_control"] > limits["decision_gap"])
