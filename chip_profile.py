@@ -24,15 +24,14 @@ replayed as CUDA graphs; ``--eager`` profiles ``make_navigate_batch_fn``'s
 instead, launched op by op from the host. Exits non-zero without a card or
 when the profiler records no device activity.
 
-``--split`` (ROADMAP C.14) instead cuts one synchronized captured episode
-into its parts, as ``make_navigate_batch`` runs its full loop: the copy-in
-of the states, of the statics and of ``aux`` into the graph's buffers, the
-replay, the copy-out of the results (device time of each from CUDA events),
-and the sync (the host clock from the first copy to the return of
-``torch.cuda.synchronize()``, less those parts); ``lib_prepare``, which a
-call with ``aux=None`` adds before its copy-in, is timed apart. Medians of
-SPLIT_RUNS episodes, each part's share of the median wall time, and the
-bytes each copy moves.
+``--split`` instead runs SPLIT_RUNS synchronized captured episodes inside
+``navdv_torch.utils.profiling.recording()``, after one that captures the
+graph with the step's stage marks, and prints what the recording read: the
+host ms a call of the captured run's spans (``copy_in``, ``launch``,
+``copy_out``; ``launch`` holds ``fold_ms``, the recording's own reading of
+the last replay's events), each stage's device ms a step, the graph's device ms from
+its first mark to its last (median), the stages' share of it, and the
+median wall time of a call up to the return of ``torch.cuda.synchronize()``.
 """
 
 from __future__ import annotations
@@ -56,7 +55,6 @@ from chip_smoke import (
     card_line,
     exact_cfg,
 )
-from navdv_torch.capture import Captured, _flatten, copy_out
 from navdv_torch.agent import (
     init_state,
     make_navigate_batch,
@@ -66,11 +64,10 @@ from navdv_torch.agent import (
 from navdv_torch.metrics import success_rate
 from navdv_torch.training import train_library
 from navdv_torch.trials import make_trials
-from navdv_torch.utils.profiling import top_ops, trace
+from navdv_torch.utils.profiling import recording, top_ops, trace
 
 TRACE_DIR = Path(__file__).resolve().parent / "build" / "traces"
 SPLIT_RUNS = 25
-SPLIT_PARTS = ("states_in", "statics_in", "aux_in", "replay", "copy_out")
 
 
 def cell(fam_impl: str, config: int):
@@ -84,65 +81,30 @@ def cell(fam_impl: str, config: int):
     return (*bench_config(2, CONFIG2_VIEWS), CONFIG2_BATCH)
 
 
-def _event() -> torch.cuda.Event:
-    ev = torch.cuda.Event(enable_timing=True)
-    ev.record()
-    return ev
-
-
-def _leaves(tree) -> list:
-    leaves: list = []
-    _flatten(tree, leaves)
-    return leaves
-
-
 def split_episode(cfg, fam_impl: str, st, states0) -> dict:
-    """The parts of one synchronized captured episode (see ``--split``):
-    the full loop captured as ``make_navigate_batch`` captures it, its
-    inputs copied in group by group around CUDA events."""
-    eager = make_navigate_batch_fn(cfg, fam_impl)
-    prepare = eager.lib_prepare
-    aux = None if prepare is None else prepare(st)
-    groups = (states0, st, aux)
-    sizes = [len(_leaves(x)) for x in groups]
-    graph = Captured(eager, states0.xy.device, "episode").graph(*groups)
-    parts = {k: [] for k in (*SPLIT_PARTS, "sync", "wall", "lib_prepare")}
-    for _ in range(SPLIT_RUNS):
-        if prepare is not None:
+    """What ``profiling.recording()`` reads of SPLIT_RUNS synchronized
+    captured episodes (see ``--split``)."""
+    run = make_navigate_batch(cfg, fam_impl)
+    aux = None if run.prepare is None else run.prepare(st)
+    with recording():
+        run(states0, st, aux)  # warm-up and the capture of the marked graph
+    torch.cuda.synchronize()
+    walls = []
+    with recording() as rec:
+        for _ in range(SPLIT_RUNS):
+            t0 = time.perf_counter()
+            run(states0, st, aux)
             torch.cuda.synchronize()
-            start = _event()
-            prepare(st)
-            end = _event()
-            torch.cuda.synchronize()
-            parts["lib_prepare"].append(start.elapsed_time(end))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        leaves = _leaves(groups)  # as Captured.__call__ flattens its inputs
-        events = [_event()]
-        lo = 0
-        for n in sizes:  # the copy-in of Graph._load, one input group at a time
-            for dst, src in zip(graph._static[lo:lo + n], leaves[lo:lo + n]):
-                dst.copy_(src)
-            lo += n
-            events.append(_event())
-        out = graph.replay()
-        events.append(_event())
-        copy_out(out)
-        events.append(_event())
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        device = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
-        for name, ms in zip(SPLIT_PARTS, device):
-            parts[name].append(ms)
-        parts["sync"].append(wall - sum(device))
-        parts["wall"].append(wall)
-    med = {k: float(np.median(v)) if v else None for k, v in parts.items()}
-    nbytes = [sum(t.numel() * t.element_size() for t in _leaves(x)) for x in groups]
+            walls.append((time.perf_counter() - t0) * 1e3)
+    spans = rec.totals()
     return {
-        "ms": med, "share_of_wall": {k: med[k] / med["wall"] for k in (*SPLIT_PARTS, "sync")},
-        "statics_and_aux_in_share": (med["statics_in"] + med["aux_in"]) / med["wall"],
-        "leaves": dict(zip(("states", "statics", "aux"), sizes)),
-        "bytes": dict(zip(("states", "statics", "aux"), nbytes)), "runs": SPLIT_RUNS,
+        "host_ms": {name: spans[name]["self_ms"] / SPLIT_RUNS
+                    for name in ("copy_in", "launch", "copy_out")},
+        "fold_ms": rec.fold_ms / SPLIT_RUNS,
+        "stage_ms_per_step": {name: ms / marks for name, (ms, marks) in rec.stages.items()},
+        "graph_ms": float(np.median(rec.graph_ms)),
+        "stages_share_of_graph": sum(ms for ms, _ in rec.stages.values()) / sum(rec.graph_ms),
+        "wall_ms": float(np.median(walls)), "runs": SPLIT_RUNS,
     }
 
 
@@ -155,7 +117,7 @@ def main() -> int:
     mode.add_argument("--eager", action="store_true",
                       help="profile the eager episode instead of the captured one")
     mode.add_argument("--split", action="store_true",
-                      help="split one synchronized captured episode into its parts (C.14)")
+                      help="split captured episodes into host spans and device stages")
     args = parser.parse_args()
     config = args.config or {"roll": 2, "infomax": 1}.get(args.fam_impl, 4)
     if not torch.cuda.is_available():

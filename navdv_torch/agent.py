@@ -63,6 +63,7 @@ from navdv_torch.sensor import (
     scan_lag_sets,
     scan_shift_sets,
 )
+from navdv_torch.utils.profiling import stage
 
 STATUS_RUNNING = 0
 STATUS_REACHED = 1
@@ -162,8 +163,9 @@ def lib_pmin(m: torch.Tensor, lib_axis) -> torch.Tensor:
     ``lib_pmin.calls`` counts the collectives issued."""
     if lib_axis is None:
         return m
-    m = m.contiguous()
-    dist.all_reduce(m, op=dist.ReduceOp.MIN, group=lib_axis)
+    with stage("lib_pmin"):
+        m = m.contiguous()
+        dist.all_reduce(m, op=dist.ReduceOp.MIN, group=lib_axis)
     lib_pmin.calls += 1
     return m
 
@@ -348,13 +350,17 @@ def _warn_unused_knobs(cfg: SimConfig, fam_impl: str) -> None:
 
 
 def _step_from_fam(fam_of, decide):
-    """Assemble a batched step from its familiarity stage. ``step.fam``
-    exposes the pre-argmin familiarity ``fam_of(states, st, aux=None) ->
-    [B, Nh]``, so a probe (another familiarity route, an analysis) reads the
-    exact step pipeline."""
+    """Assemble a batched step from its familiarity stage, marked as the
+    stages ``familiarity`` and ``decide``. ``step.fam`` exposes the
+    pre-argmin familiarity ``fam_of(states, st, aux=None) -> [B, Nh]``, so a
+    probe (another familiarity route, an analysis) reads the exact step
+    pipeline."""
 
     def step(states: AgentState, st: EpisodeStatics, aux=None):
-        return decide(states, fam_of(states, st, aux), st)
+        with stage("familiarity"):
+            fam = fam_of(states, st, aux)
+        with stage("decide"):
+            return decide(states, fam, st)
 
     step.fam = fam_of
     return step
@@ -449,6 +455,13 @@ def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None, lib
     pooled familiarity, since the minimum commutes with the pooling) are
     combined by :func:`lib_pmin` before the RIDF pool, at the JAX package's
     four points.
+
+    The step marks its stages on the device
+    (:func:`navdv_torch.utils.profiling.stage`): ``"fft"`` and ``"roll"``
+    with the full render mark ``front`` (render, window gather, pooled
+    panorama, lag statistics), ``familiarity``, ``lib_pmin`` (with a lib
+    axis) and ``decide`` (the RIDF min-pool and :func:`_make_decide`'s
+    decision); every other path marks ``familiarity`` and ``decide``.
     """
     dev = resolve_device(device)
     fam_impl = resolve_fam_impl(cfg, fam_impl)
@@ -485,15 +498,26 @@ def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None, lib
         lib_min_s = make(cfg.sensor, cfg.scan, lags, dev)
         stats = make_lag_stats(cfg.sensor, lags, dev) if ncc else None
 
-        def fam_of(states: AgentState, st: EpisodeStatics, aux=None) -> torch.Tensor:
-            s = pooled(render_b(st.landscape, states.xy, states.theta))  # [B, R, A]
-            lag_sum = lag_sq = None
-            if stats is not None:
-                lag_sum, lag_sq = stats(s.double())  # [B, L] each
-            m = lib_pmin(lib_min_s(s, st.lib, lag_sum, lag_sq, aux), lib_axis)  # [B, L]
-            return torch.min(m[:, window_idx_dev], dim=2).values  # [B, Nh]
+        def lag_min(states: AgentState, st: EpisodeStatics, aux) -> torch.Tensor:
+            with stage("front"):
+                s = pooled(render_b(st.landscape, states.xy, states.theta))  # [B, R, A]
+                lag_sum = lag_sq = None
+                if stats is not None:
+                    lag_sum, lag_sq = stats(s.double())  # [B, L] each
+            with stage("familiarity"):
+                m = lib_min_s(s, st.lib, lag_sum, lag_sq, aux)
+            return lib_pmin(m, lib_axis)  # [B, L]
 
-        step = _step_from_fam(fam_of, decide)
+        def fam_of(states: AgentState, st: EpisodeStatics, aux=None) -> torch.Tensor:
+            return torch.min(lag_min(states, st, aux)[:, window_idx_dev], dim=2).values
+
+        def step(states: AgentState, st: EpisodeStatics, aux=None):
+            m = lag_min(states, st, aux)
+            with stage("decide"):
+                fam = torch.min(m[:, window_idx_dev], dim=2).values  # [B, Nh]
+                return decide(states, fam, st)
+
+        step.fam = fam_of
         step.lib_prepare = lambda st: lib_min_s.prepare(st.lib)
         return step
 

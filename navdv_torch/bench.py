@@ -40,16 +40,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
-import glob
 import json
 import os
-import re
 import subprocess
 import sys
 import threading
 import time
 import traceback
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -97,10 +94,6 @@ GATE_BATCH = 256
 # refuses the sizes the JAX bench refuses
 TPU_VMEM_LAND_MAX_ELEMS = 2_000_000
 MAX_CHAIN = 256  # episodes in one timed window, at most
-# a drop of more than this share against the newest committed port record
-# flags a regression
-REGRESSION_TOL = 0.05
-ARTIFACTS = Path(__file__).resolve().parent.parent / "artifacts"
 METRIC = "agent-steps/sec/chip"
 
 
@@ -145,49 +138,6 @@ def _device_fields(dev: torch.device) -> dict:
         return {"device": "gpu", "device_kind": torch.cuda.get_device_name(dev),
                 "card": _card()}
     return {"device": "cpu", "device_kind": "cpu", "card": None}
-
-
-def load_regression_baseline(path: str | None = None) -> dict:
-    """Headline values of the newest committed port record,
-    ``artifacts/bench_torch_r<N>_all.jsonl``, keyed by (config, batch, impl,
-    device); {} when there is none. The device is part of the key, so a
-    record taken on another platform never becomes a baseline."""
-    if path is None:
-        cands = glob.glob(str(ARTIFACTS / "bench_torch_r*_all.jsonl"))
-        if not cands:
-            return {}
-
-        def rnum(p):
-            m = re.search(r"bench_torch_r(\d+)_all", p)
-            return int(m.group(1)) if m else -1
-
-        path = max(cands, key=rnum)
-    baseline = {}
-    try:
-        with open(path) as f:
-            for line in f:
-                try:
-                    rec = json.loads(line)
-                except json.JSONDecodeError:
-                    continue
-                # error lines share the metric name with value null
-                if rec.get("metric") != METRIC or not isinstance(rec.get("value"), (int, float)):
-                    continue
-                key = (rec.get("config"), rec.get("batch"), rec.get("impl"), rec.get("device"))
-                baseline[key] = float(rec["value"])
-    except OSError:
-        return {}
-    return baseline
-
-
-def apply_regression_guard(result: dict, baseline: dict) -> dict:
-    key = (result.get("config"), result.get("batch"), result.get("impl"), result.get("device"))
-    prev = baseline.get(key)
-    if prev is None or not result.get("value"):
-        return result
-    result["prev_round_value"] = prev
-    result["regression"] = bool(result["value"] < (1.0 - REGRESSION_TOL) * prev)
-    return result
 
 
 # --- world, trials, timing --------------------------------------------------
@@ -697,15 +647,13 @@ def _run_cli(args, ap, dev) -> None:
         return
     if args.config != 1:
         ap.error("--all runs configs 1-4; drop --config")
-    baseline = load_regression_baseline()
     # config 4 is config 1's workload at 1024 agents; config 5 (the sweep
     # grid) runs through `python -m navdv_torch.cli sweep`
     for cfg_n in (1, 2, 3, 4):
-        _emit(apply_regression_guard(run_bench(cfg_n, batch=args.batch, **common), baseline))
+        _emit(run_bench(cfg_n, batch=args.batch, **common))
     # config 1's latency envelope; B < 64 has no population to gate on
     for b_small in (1, 16, 64):
-        _emit(apply_regression_guard(
-            run_bench(1, batch=b_small, gated=b_small >= 64, **common), baseline))
+        _emit(run_bench(1, batch=b_small, gated=b_small >= 64, **common))
     _emit(run_pallas_gate(route_length=args.route_length, device=dev))
     # the NCC branch at the config-3 sensor (23k px views: a small batch
     # bounds the [B, L, P] candidate tensor)

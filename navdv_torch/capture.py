@@ -20,8 +20,15 @@ a program the compiled shape on a CUDA device:
 The kernel launch counts (``ops.launch_counts``) and the step's collectives
 (``agent.lib_pmin.calls``) count what ran on the card: each replay adds the
 counts its capture recorded, and the warm-up and the capture add nothing.
+:func:`capture_counts` counts the graphs captured and released.
 A capture that fails raises, with the operation that broke it in the
 traceback; nothing catches it and runs eagerly instead.
+
+A call opens three spans (:mod:`navdv_torch.utils.profiling`):
+``copy_in``, ``launch`` (the replay) and ``copy_out``. Whether a recording
+is open is part of a graph's key: a graph captured inside one records the
+step's stage marks as event nodes, which the recording reads before the
+graph's next replay; one captured outside holds none.
 
 A graph holds its static buffers and a private memory pool as long as it
 lives, where a jitted JAX function keeps only its executable. So the
@@ -38,6 +45,7 @@ backend (:func:`host_collectives`) before they build anything.
 
 from __future__ import annotations
 
+import contextlib
 import weakref
 from collections import OrderedDict
 
@@ -45,11 +53,19 @@ import torch
 import torch.distributed as dist
 
 from navdv_torch import ops
+from navdv_torch.utils import profiling
 
 MAX_GRAPHS = 4  # input signatures a Captured keeps; the oldest graph goes first
 # captured programs a ProgramCache keeps with their graphs; the least
 # recently used is released first (None: no bound)
 MAX_PROGRAMS = 2
+_COUNTS = {"captures": 0, "releases": 0}
+
+
+def capture_counts() -> dict[str, int]:
+    """Graphs captured (on the CPU: made) and released since the process
+    started."""
+    return dict(_COUNTS)
 
 
 def host_collectives(group) -> bool:
@@ -132,20 +148,25 @@ class Graph:
     function reads and may update in place; ``load(*args)`` copies new
     inputs into them, ``replay()`` runs the graph (on the CPU: calls ``fn``)
     and returns its outputs: the graph's own buffers, which the next replay
-    overwrites. Use :func:`copy_out` on what is kept."""
+    overwrites. Use :func:`copy_out` on what is kept. ``marked`` captures
+    the stage marks (``marks``: (stage, start event, end event), None
+    without)."""
 
-    def __init__(self, fn, spec, leaves: list, device: torch.device, name: str):
+    def __init__(self, fn, spec, leaves: list, device: torch.device, name: str,
+                 marked: bool):
         self.fn, self.spec, self.name = fn, spec, name
         self._static = [t.clone() for t in leaves]
         self.args = _unflatten(spec, iter(self._static))
         self.graph = None
         self.out = None
+        self.marks = None
         if device.type == "cuda":
-            self._capture(device)
+            self._capture(device, marked)
         elif device.type != "cpu":
             raise ValueError(f"{name}: no capture on device {device}")
+        _COUNTS["captures"] += 1
 
-    def _capture(self, dev: torch.device) -> None:
+    def _capture(self, dev: torch.device, marked: bool) -> None:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         saved = _read_counts()
@@ -159,8 +180,11 @@ class Graph:
             self.graph = torch.cuda.CUDAGraph()
             try:
                 # thread_local: a collective's watchdog thread may query events
-                with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
+                with (profiling.marking() if marked else contextlib.nullcontext()) as marks, \
+                        torch.cuda.graph(self.graph, stream=side,
+                                         capture_error_mode="thread_local"):
                     self.out = self.fn(*self.args)
+                self.marks = marks or None
             except Exception as e:
                 raise RuntimeError(f"{self.name}: CUDA graph capture failed ({e}); the "
                                    "operation that broke it is in the traceback above") from e
@@ -183,9 +207,11 @@ class Graph:
     def release(self) -> None:
         """Free the graph, its memory pool and the static buffers; the
         Graph cannot replay after this."""
+        if self.args is not None:
+            _COUNTS["releases"] += 1
         if self.graph is not None:
             self.graph.reset()
-        self.graph = self.out = self.args = None
+        self.graph = self.out = self.args = self.marks = None
         self._static = []
 
     def replay(self):
@@ -194,6 +220,8 @@ class Graph:
         if self.graph is None:
             self.out = self.fn(*self.args)
         else:
+            if self.marks is not None:
+                profiling.replaying(self.marks)
             self.graph.replay()
             _write_counts([a + b for a, b in zip(_read_counts(), self._delta)])
         return self.out
@@ -203,19 +231,22 @@ class Captured:
     """``fn(*args)`` (trees of tensors in and out) run through a
     :class:`Graph` per input signature, captured at its first call on
     ``device`` and kept while this object lives (at most :data:`MAX_GRAPHS`,
-    the oldest dropped first). Calls return fresh tensors."""
+    the oldest dropped first). Calls return fresh tensors. A signature
+    captured inside a :func:`~navdv_torch.utils.profiling.recording` and
+    outside one are two graphs, the first with the step's stage marks."""
 
     def __init__(self, fn, device, name: str):
         self.fn, self.device, self.name = fn, torch.device(device), name
         self._graphs: dict = {}
 
     def _graph(self, spec, leaves: list) -> Graph:
-        g = self._graphs.get(spec)
+        marked = self.device.type == "cuda" and profiling.is_recording()
+        g = self._graphs.get((spec, marked))
         if g is None:
-            g = Graph(self.fn, spec, leaves, self.device, self.name)
+            g = Graph(self.fn, spec, leaves, self.device, self.name, marked)
             while len(self._graphs) >= MAX_GRAPHS:
                 self._graphs.pop(next(iter(self._graphs))).release()
-            self._graphs[spec] = g
+            self._graphs[spec, marked] = g
         return g
 
     def release(self) -> None:
@@ -233,8 +264,12 @@ class Captured:
     def __call__(self, *args):
         leaves: list = []
         g = self._graph(_flatten(args, leaves), leaves)
-        g._load(leaves)
-        return copy_out(g.replay())
+        with profiling.span("copy_in"):
+            g._load(leaves)
+        with profiling.span("launch"):
+            out = g.replay()
+        with profiling.span("copy_out"):
+            return copy_out(out)
 
 
 class ProgramCache:

@@ -41,6 +41,7 @@ from navdv_torch.config import SimConfig
 from navdv_torch.device import resolve_device
 from navdv_torch.familiarity import LibraryPack, pad_library
 from navdv_torch.metrics import episode_metrics
+from navdv_torch.utils.profiling import span
 
 DATA_AXIS = "data"
 LIB_AXIS = "lib"
@@ -201,7 +202,8 @@ def make_navigate_sharded(cfg: SimConfig, mesh: Mesh, fam_impl: str = "kernel",
     gloo runs the eager episode (``make_navigate_batch_fn``): its
     collectives are host operations. This is decided from the group's
     backend when the run is built, and ``run.captured`` shows it. The data
-    gather runs after the episode, outside any graph. Free the runs and
+    gather runs after the episode, outside any graph; the span ``episode``
+    (:mod:`navdv_torch.utils.profiling`) holds both. Free the runs and
     probes built on an NCCL lib group (the probe cache keeps probes:
     ``analysis._make_familiarity_probe.cache_clear()``) before
     ``destroy_process_group``: while a CUDA graph that holds one of the
@@ -226,11 +228,12 @@ def make_navigate_sharded(cfg: SimConfig, mesh: Mesh, fam_impl: str = "kernel",
         b = states0.theta.shape[0]
         if b % n_data:
             raise ValueError(f"batch {b} must be a multiple of the data-axis size {n_data}")
-        bl = b // n_data
-        lo = mesh.data_index * bl
-        local = AgentState(*(x[lo:lo + bl].to(mesh.device) for x in states0))
-        final, rec = nav(local, st, aux)
-        out = gather_data(mesh, [*final, *rec])
+        with span("episode"):
+            bl = b // n_data
+            lo = mesh.data_index * bl
+            local = AgentState(*(x[lo:lo + bl].to(mesh.device) for x in states0))
+            final, rec = nav(local, st, aux)
+            out = gather_data(mesh, [*final, *rec])
         return AgentState(*out[:len(final)]), StepRecord(*out[len(final):])
 
     run.prepare, run.captured, run.release = nav.prepare, nav.captured, nav.release

@@ -22,6 +22,7 @@ from navdv_torch.device import as_tensor, resolve_device
 from navdv_torch.metrics import episode_metrics, success_rate
 from navdv_torch.oracle import resample_route
 from navdv_torch.trials import make_trials
+from navdv_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -106,43 +107,52 @@ class NavigationSimulator:
         """Run batched recall episodes from randomized (or given) starts;
         ``start_anywhere`` samples starts uniformly along the route. When
         ``starts`` is given without ``headings``, each agent faces the route
-        tangent at its nearest captured route point."""
-        if self.library is None:
-            raise RuntimeError("call train() or load_library() first")
-        if starts is None:
-            if headings is not None:
-                raise ValueError("headings given without starts")
-            starts, headings = make_trials(
-                self.route, self.cfg, n_trials, seed=seed,
-                pos_sigma=pos_sigma, heading_sigma=heading_sigma,
-                start_anywhere=start_anywhere,
-            )
-        else:
-            # both explicit-start call styles take an unbatched [2] start
-            starts = np.atleast_2d(np.asarray(starts, np.float64))
-            if headings is None:
-                pts, hd = resample_route(self.route, self.cfg.capture_spacing)
-                nearest = np.argmin(
-                    ((starts[:, None, :] - pts[None, :, :]) ** 2).sum(-1),
-                    axis=1,
+        tangent at its nearest captured route point.
+
+        The call opens the spans (:mod:`navdv_torch.utils.profiling`)
+        ``navigate``, and inside it ``init_state``, ``episode`` (the
+        captured run's ``copy_in``, ``launch`` and ``copy_out``) and
+        ``metrics`` (``episode_metrics`` and its host copies), which holds
+        ``success`` (the success-rate read, which waits for the episode)."""
+        with span("navigate"):
+            if self.library is None:
+                raise RuntimeError("call train() or load_library() first")
+            if starts is None:
+                if headings is not None:
+                    raise ValueError("headings given without starts")
+                starts, headings = make_trials(
+                    self.route, self.cfg, n_trials, seed=seed,
+                    pos_sigma=pos_sigma, heading_sigma=heading_sigma,
+                    start_anywhere=start_anywhere,
                 )
-                headings = hd[nearest]
             else:
-                headings = np.atleast_1d(np.asarray(headings, np.float64))
-                if headings.shape[0] != starts.shape[0]:
-                    raise ValueError(
-                        f"headings batch {headings.shape[0]} != starts "
-                        f"batch {starts.shape[0]}"
+                # both explicit-start call styles take an unbatched [2] start
+                starts = np.atleast_2d(np.asarray(starts, np.float64))
+                if headings is None:
+                    pts, hd = resample_route(self.route, self.cfg.capture_spacing)
+                    nearest = np.argmin(
+                        ((starts[:, None, :] - pts[None, :, :]) ** 2).sum(-1),
+                        axis=1,
                     )
-        final, rec = self._navigate(init_state(starts, headings, self.device),
-                                    self._statics, self._aux)
-        m = episode_metrics(final, rec)
-        return NavigationResult(
-            success_rate=float(success_rate(final)),  # waits for the episode
-            metrics={k: v.cpu().numpy() for k, v in m.items()},
-            final_state=final,
-            record=rec,
-        )
+                    headings = hd[nearest]
+                else:
+                    headings = np.atleast_1d(np.asarray(headings, np.float64))
+                    if headings.shape[0] != starts.shape[0]:
+                        raise ValueError(
+                            f"headings batch {headings.shape[0]} != starts "
+                            f"batch {starts.shape[0]}"
+                        )
+            with span("init_state"):
+                states0 = init_state(starts, headings, self.device)
+            with span("episode"):
+                final, rec = self._navigate(states0, self._statics, self._aux)
+            with span("metrics"):
+                m = episode_metrics(final, rec)  # queued behind the episode
+                with span("success"):
+                    rate = float(success_rate(final))  # waits for the episode
+                metrics = {k: v.cpu().numpy() for k, v in m.items()}
+            return NavigationResult(success_rate=rate, metrics=metrics, final_state=final,
+                                    record=rec)
 
     def start_pose(self) -> tuple[np.ndarray, float]:
         """(route start point, initial tangent heading)."""

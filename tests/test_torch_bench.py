@@ -274,46 +274,6 @@ def test_spec_impl_mirrors_both_baseline_fam_impl():
         assert impl == t_baseline_fam_impl(n) == j_baseline_fam_impl(n), n
 
 
-# --- the regression guard ---------------------------------------------------
-
-def test_regression_guard_flags_drop_and_passes_within_tol():
-    baseline = {(1, 1024, "fft", "gpu"): 1_000_000.0}
-    line = {"config": 1, "batch": 1024, "impl": "fft", "device": "gpu", "ok": True}
-    flagged = tbench.apply_regression_guard({**line, "value": 900_000.0}, baseline)
-    assert flagged["regression"] is True and flagged["prev_round_value"] == 1_000_000.0
-    quiet = tbench.apply_regression_guard({**line, "value": 980_000.0}, baseline)
-    assert quiet["regression"] is False
-    # a record of another platform never judges a line of the card
-    other = tbench.apply_regression_guard({**line, "value": 3000.0},
-                                          {(1, 1024, "fft", "tpu"): 1_000_000.0})
-    assert "regression" not in other
-
-
-def test_regression_baseline_reads_newest_port_artifact(tmp_path, monkeypatch):
-    """Only ``bench_torch_r<N>_all.jsonl``, the newest round; error lines
-    and TPU-keyed records never match a line of the card; none -> {}."""
-    monkeypatch.setattr(tbench, "ARTIFACTS", tmp_path)
-    assert tbench.load_regression_baseline() == {}
-    (tmp_path / "bench_r9_final_all.jsonl").write_text(json.dumps(
-        {"metric": "agent-steps/sec/chip", "value": 5.0, "config": 1, "batch": 1024,
-         "impl": "fft", "device": "gpu"}) + "\n")
-    assert tbench.load_regression_baseline() == {}
-    rec = {"metric": "agent-steps/sec/chip", "config": 1, "batch": 1024, "impl": "fft"}
-    (tmp_path / "bench_torch_r1_all.jsonl").write_text(
-        json.dumps({**rec, "value": 1.0, "device": "gpu"}) + "\n")
-    (tmp_path / "bench_torch_r2_all.jsonl").write_text("\n".join([
-        json.dumps({**rec, "value": 2.0, "device": "gpu"}),
-        json.dumps({**rec, "value": 7.0, "device": "tpu"}),
-        json.dumps({**rec, "value": None, "device": "gpu", "error": "x", "ok": False}),
-        "not json",
-    ]) + "\n")
-    base = tbench.load_regression_baseline()
-    assert base == {(1, 1024, "fft", "gpu"): 2.0, (1, 1024, "fft", "tpu"): 7.0}
-    line = tbench.apply_regression_guard(
-        {**rec, "value": 1.0, "device": "gpu", "ok": True}, base)
-    assert line["prev_round_value"] == 2.0 and line["regression"] is True
-
-
 # --- the --all gates ----------------------------------------------------------
 
 GATES = {

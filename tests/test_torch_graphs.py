@@ -36,6 +36,8 @@ from navdv_torch.familiarity_infomax import dose_schedule, initial_weights, trai
 from navdv_torch.landscape import make_landscape
 from navdv_torch.oracle import resample_route
 from navdv_torch.training import train_library
+from navdv_torch.trials import make_trials
+from navdv_torch.utils import profiling
 
 CPU = "cpu"
 B = 12
@@ -330,6 +332,45 @@ def test_captured_infomax_and_probe_on_card(dev, small_cfg, small_world):
     assert torch.equal(probe(xy, theta, st), probe.eager(xy, theta, st))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("config,fam_impl,batch,views", [(1, "fft", 1024, 50),
+                                                         (2, "roll", 512, 500)])
+def test_stage_marks_on_card(dev, monkeypatch, config, fam_impl, batch, views):
+    """At a benchmark cell's shapes: a graph captured inside a recording
+    gives the unmarked graph's episode bit for bit; the unmarked capture
+    records no event, the marked one a pair a stage and step; the warm-up
+    and the capture add nothing to the recording; the stages cover at least
+    90% of the graph's device time."""
+    from chip_smoke import bench_config
+
+    cfg, land, route = bench_config(config, views)
+    st = make_statics(land, train_library(land, route, cfg, device=dev), route, dev)
+    states = init_state(*make_trials(route, cfg, batch, seed=0), dev)
+    run = make_navigate_batch(cfg, fam_impl, device=dev)
+    aux = run.prepare(st)
+    events = []
+    event = profiling._event
+    monkeypatch.setattr(profiling, "_event", lambda: events.append(1) or event())
+    want = run(states, st, aux)
+    torch.cuda.synchronize()
+    assert events == []
+    steps = cfg.agent.max_steps
+    with profiling.recording() as rec:
+        got = run(states, st, aux)  # warm-up, capture, one replay
+    _assert_equal(got, want)
+    assert len(events) == 2 * 3 * steps
+    assert {k: v[1] for k, v in rec.stages.items()} == dict.fromkeys(
+        ("front", "familiarity", "decide"), steps)
+    assert len(rec.graph_ms) == 1
+    with profiling.recording() as rec:
+        got = [run(states, st, aux) for _ in range(2)]
+    for g in got:
+        _assert_equal(g, want)
+    assert len(events) == 2 * 3 * steps and len(rec.graph_ms) == 2
+    covered = sum(ms for ms, _ in rec.stages.values()) / sum(rec.graph_ms)
+    assert 0.9 <= covered <= 1.0, rec.stages
+
+
 NCCL_MESHES = ((4, 1), (1, 4), (2, 2))
 
 
@@ -396,6 +437,17 @@ def child(out_dir: str, device=None) -> None:
             out["probe"] = {"captured": probe.captured,
                             "eager_equal": bool(torch.equal(got, probe.eager(states.xy,
                                                                            states.theta, st_m)))}
+            # the roll step's stages with the all_reduce marked apart
+            roll = make_navigate_sharded(cfg, mesh, "roll")
+            aux = roll.prepare(st_m)
+            want = roll(states, st_m, aux)
+            with profiling.recording() as rec:
+                got = roll(states, st_m, aux)
+            out["marked"] = {
+                "equal": all(torch.equal(a, b) for a, b in zip(_fields(got), _fields(want))),
+                "stages": {k: v[1] for k, v in rec.stages.items()},
+                "spans": sorted(rec.totals())}
+            roll.release()
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     # the teardown hangs while a CUDA graph that holds one of the groups'
     # collectives is alive: free them first (the probe cache holds probes)
@@ -412,8 +464,10 @@ def test_nccl_lib_meshes_are_captured_on_four_cards(tmp_path):
     graphs (the lib meshes with the step's all_reduce captured), each rank's
     slice equals the eager episode on it bit for bit, the unsharded
     episode's candidates are kept, and each replay counts one MIN a step;
-    the lib-axis probe is captured and equals its eager run; every rank
-    destroys its process group once the graphs are freed."""
+    the lib-axis probe is captured and equals its eager run; the roll
+    episode captured inside a recording equals the unmarked one and marks
+    the all_reduce as a stage of its own; every rank destroys its process
+    group once the graphs are freed."""
     from test_torch_distributed import launch_ranks
 
     if torch.cuda.device_count() < 4:
@@ -427,6 +481,9 @@ def test_nccl_lib_meshes_are_captured_on_four_cards(tmp_path):
             assert m["k_equal_unsharded"] and m["fam_max_rel"] <= 1e-6, (nd, nl, m)
             assert m["lib_pmin"] == (48 if nl > 1 else 0), (nd, nl, m)
         assert r["probe"] == {"captured": True, "eager_equal": True}
+        assert r["marked"] == {"equal": True, "stages": dict.fromkeys(
+            ("front", "familiarity", "lib_pmin", "decide"), 48),
+            "spans": ["copy_in", "copy_out", "episode", "launch"]}
 
 
 if __name__ == "__main__" and sys.argv[1] == "child":
