@@ -7,7 +7,7 @@ Phases, one JSON line each:
 1. card   — the card's name and power limit (nvidia-smi);
 2. build  — every CUDA kernel of the main path, built from ``navdv_torch/csrc``
             (one nvcc per source, all started together); ptxas must report no
-            spills in any of the four libraries, and ``cuobjdump -sass`` must
+            spills in any of the five libraries, and ``cuobjdump -sass`` must
             find fp64 tensor-core instructions (DMMA) in the two distance
             kernels;
 3. kernels — each kernel against its plain PyTorch version at the main
@@ -27,11 +27,15 @@ Phases, one JSON line each:
             views -> min-distance kernel -> window pool). ``dgemm_ms`` is the
             time of the fp64 cuBLAS product ``a64 @ b64.T`` at the
             min-distance shape: what DMMA reaches there through cuBLAS, not a
-            computation of the kernel's function;
+            computation of the kernel's function. The decision kernel
+            (``ops.decide``) must equal its plain version bit for bit at
+            B = 1024 and B = 1 (``b1``) on the bench route; it replaces no
+            TPU kernel, so it has no yardstick;
 4. main   — config 4 with the exact familiarity path (``spectral_cutoff=0``):
             train a 50-view library on the 512^2 blobs world, then a batched
             episode of 1024 agents with ``fam_impl="kernel"``; the launch
-            count of each of its three kernels over that run must be > 0;
+            count of each of its four kernels (the decision's too) over that run
+            must be > 0;
 5. reference — the same episode with ``fam_impl="plain"``: success rates
             within 0.025, >= 99% of agents choose the same first candidate;
 6. lag    — the fused lag familiarity (``ops.lag.make_lag_fam``) on the
@@ -304,6 +308,7 @@ from navdv_torch.familiarity_infomax import applied_updates, initial_weights, tr
 from navdv_torch.familiarity_roll import make_lib_min_roll
 from navdv_torch.landscape import make_landscape
 from navdv_torch.metrics import episode_metrics, success_rate
+from navdv_torch.ops.decide import Route, decide, decide_constants, decide_plain
 from navdv_torch.ops.familiarity import (
     make_lib_min_kernel,
     min_distance_rows,
@@ -356,7 +361,9 @@ BATCH = 1024
 VIEWS = 50
 CONFIG2_BATCH = 512  # bench.py SPEC_BATCH[2]
 CONFIG2_VIEWS = 500  # bench.py SPEC_VIEWS[2]
-MAIN_KERNELS = ("window_gather", "render", "min_distance")
+# the kernel path's familiarity map: the step's kernels but the decision
+MAP_KERNELS = ("window_gather", "render", "min_distance")
+MAIN_KERNELS = (*MAP_KERNELS, "decide")
 RENDER_KERNELS = ("window_gather", "render")
 DISTANCE_KERNELS = ("min_distance", "lag_fam")
 DMMA_KERNELS = ("min_distance", "lag_fam")  # built for the fp64 tensor cores
@@ -543,7 +550,7 @@ def slice_config() -> tuple[SimConfig, np.ndarray, np.ndarray]:
     return dataclasses.replace(cfg, scan=dataclasses.replace(cfg.scan, spectral_cutoff=0)), land, route
 
 
-def check_kernels(cfg: SimConfig, dev: torch.device) -> dict[str, dict]:
+def check_kernels(cfg: SimConfig, route: np.ndarray, dev: torch.device) -> dict[str, dict]:
     """Each kernel vs its plain version at the main path's shapes."""
     rng = np.random.default_rng(0)
     sensor = cfg.sensor
@@ -602,6 +609,7 @@ def check_kernels(cfg: SimConfig, dev: torch.device) -> dict[str, dict]:
         ncc=metrics["ncc"], dgemm_ms=dgemm_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
     results["lag_fam"] = check_lag_kernel(cfg, dev, rng)
+    results["decide"] = check_decide(cfg, route, dev, rng)
     return results
 
 
@@ -700,6 +708,56 @@ def check_render(win: torch.Tensor, sensor: SensorConfig, dev: torch.device, rng
         f32_mode=render["f32"], smem_bytes=smem, shape=[batch, *dx0.shape, wx],
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(grid_sample),
     )
+
+
+def decide_inputs(cfg: SimConfig, route: np.ndarray, batch: int, dev: torch.device, rng):
+    """The decision's arguments at ``cfg``'s scan on the bench route: agents
+    spread around the route's points, a quarter done, familiarity of four
+    values (exact ties) with a few inf and PAD_PENALTY entries."""
+    st = make_statics(torch.zeros(512, 512), LibraryPack(*(torch.zeros(1),) * 5), route, dev)
+    consts = decide_constants(cfg, dev)
+    nh = cfg.scan.n_headings
+    xy = route[rng.integers(0, len(route), batch)] + rng.normal(0.0, 8.0, (batch, 2))
+    done = rng.uniform(size=batch) < 0.25
+    fam = (1.0 + 0.5 * rng.integers(0, 4, (batch, nh))).astype(np.float32)
+    special = rng.uniform(size=(batch, nh))
+    fam[special < 0.02] = np.inf
+    fam[special > 0.98] = PAD_PENALTY
+    return (torch.as_tensor(xy, dtype=torch.float32, device=dev),
+            torch.as_tensor(rng.uniform(-math.pi, math.pi, batch), dtype=torch.float32,
+                            device=dev),
+            torch.as_tensor(done, device=dev),
+            torch.as_tensor(np.where(done, 1, 0), dtype=torch.int32, device=dev),
+            torch.as_tensor(fam, device=dev),
+            Route(st.route_a, st.route_ab, st.route_denom, st.goal), (512, 512), consts)
+
+
+def check_decide(cfg: SimConfig, route: np.ndarray, dev: torch.device, rng) -> dict:
+    """The decision kernel against its plain version (bit for bit) at B =
+    1024 (the row) and B = 1 (``b1``) on the bench route."""
+    rows = {}
+    for batch in (BATCH, 1):
+        args = decide_inputs(cfg, route, batch, dev, rng)
+        got = decide(*args)
+        want = decide_plain(*args)
+        torch.cuda.synchronize()
+        same = [torch.equal(g, w) for g, w in zip(got, want)]
+        require(all(same), f"decide B={batch}: differs from its plain version in "
+                           f"{[n for n, ok in zip(got._fields, same) if not ok]}")
+        xy, theta, done, status, fam, rt, _, consts = args
+        n_seg = rt.a.shape[0]
+        moved = nbytes(xy, theta, done, status, fam, consts.shifts, consts.tie_order, *rt)
+        moved += nbytes(*got)
+        # per agent: argmin compares, the move, ~19 operations a segment, the stop rules
+        b_ms, b_by = bound(moved, batch * (fam.shape[1] + 10 + 19 * n_seg + 12))
+        rows[batch] = dict(
+            max_abs_err=0.0, tolerance="exact", shape=[batch, fam.shape[1], n_seg],
+            ms=time_ms(lambda: decide(*args)), ms_in_run=time_ms_in_run(lambda: decide(*args)),
+            plain_ms=time_ms(lambda: decide_plain(*args)), bound_ms=b_ms, bound_by=b_by,
+        )
+    return dict(route="cuda", source="navdv_torch/csrc/decide.cu",
+                replaces="none (the JAX package leaves the step's tail to XLA)",
+                **rows[BATCH], library_ms=None, b1=rows[1])
 
 
 def check_lag_kernel(cfg: SimConfig, dev: torch.device, rng) -> dict:
@@ -954,13 +1012,16 @@ def timed_navigate(sim: NavigationSimulator, **kw):
     return res, counts, episode_s
 
 
-def require_render_only(counts: dict, phase: str) -> None:
+def require_render_only(counts: dict, phase: str, decides: bool = True) -> None:
     """The extraction-free paths render through the window and render
-    kernels and launch no distance kernel."""
+    kernels and launch no distance kernel; an episode decides through the
+    decision kernel, a familiarity map never does."""
     for name in RENDER_KERNELS:
         require(counts[name] > 0, f"{phase}: kernel {name} was not launched")
     for name in DISTANCE_KERNELS:
         require(counts[name] == 0, f"{phase}: kernel {name} was launched ({counts[name]})")
+    require((counts["decide"] > 0) == decides,
+            f"{phase}: decision kernel launched {counts['decide']} times")
 
 
 def compare_fam(fam_a, fam_b, poses, st, scan) -> dict:
@@ -1405,10 +1466,11 @@ def run_analysis(dev: torch.device) -> dict:
                       "device_ms_per_batch": time_ms(lambda: probe.best(xy, zeros, st, aux),
                                                      runs=5, warmup=1),
                       "launches": counts}
-    for name in MAIN_KERNELS:
+    for name in MAP_KERNELS:
         require(runs["kernel"]["launches"][name] > 0,
                 f"analysis: kernel {name} was not launched by the kernel map")
-    require_render_only(runs["fft_cutoff_0"]["launches"], "analysis fft map")
+    require(runs["kernel"]["launches"]["decide"] == 0, "analysis: the kernel map decided")
+    require_render_only(runs["fft_cutoff_0"]["launches"], "analysis fft map", decides=False)
 
     scale = float(lib.sq.max())
     for name in ("fft_cutoff_0", "fft_shipped"):
@@ -2333,7 +2395,7 @@ def run_graphs(dev: torch.device) -> dict:
     require(m["captured"] and m["bit_equal"], "graphs: the captured kernel map differs from eager")
     require(m["launches_captured"] == m["launches_eager"],
             f"graphs map: launches {m['launches_captured']} vs eager {m['launches_eager']}")
-    for name in MAIN_KERNELS:
+    for name in MAP_KERNELS:
         require(m["launches_captured"][name] > 0, f"graphs map: kernel {name} was not launched")
     return out
 
@@ -2416,6 +2478,7 @@ def check_dryrun(n: int, s: dict, cards: int) -> dict[str, int]:
                     f"{tag}: rank {rank} launched no window or render kernel: {counts}")
             require(counts["min_distance"] == 0 and counts["lag_fam"] == 0,
                     f"{tag}: rank {rank} launched a distance kernel on fft: {counts}")
+            require(counts["decide"] > 0, f"{tag}: rank {rank} launched no decision kernel")
             for name in launches:
                 launches[name] += counts[name]
     return launches
@@ -2567,8 +2630,8 @@ def run_bench_phase() -> dict[str, int]:
         else:
             require(ln.get("ok") is True, f"{what}: ok {ln.get('ok')}")
         n = ln["launches"]
-        require(n["window_gather"] > 0 and n["render"] > 0,
-                f"{what}: window or render kernel not launched: {n}")
+        require(n["window_gather"] > 0 and n["render"] > 0 and n["decide"] > 0,
+                f"{what}: window, render or decision kernel not launched: {n}")
         require(n["lag_fam"] == 0, f"{what}: the lag kernel launched: {n}")
         if ln["metric"] in ("pallas_parity_gate", "big_landscape_dma"):
             require(n["min_distance"] > 0, f"{what}: the min-distance kernel not launched")
@@ -2604,7 +2667,7 @@ def main(argv=None) -> int:
 
     cfg, land, route = slice_config()
     t0 = time.perf_counter()
-    results = check_kernels(cfg, dev)
+    results = check_kernels(cfg, route, dev)
     # what the two timers charge any launch: a kernel that does nothing
     empty = {"ms": time_ms(lambda: torch.cuda._sleep(0)),
              "ms_in_run": time_ms_in_run(lambda: torch.cuda._sleep(0))}
@@ -2663,7 +2726,7 @@ def main(argv=None) -> int:
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
-         **{key: r[key] for key in ("config3", "big_landscape", "graft_entry") if key in r}}
+         **{key: r[key] for key in ("config3", "big_landscape", "graft_entry", "b1") if key in r}}
         for name, r in results.items()
     ]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -27,6 +27,7 @@ SOURCES = {
     "render": "render.cu",
     "min_distance": "min_distance.cu",
     "lag_fam": "lag_fam.cu",
+    "decide": "decide.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -21,7 +21,8 @@ With ``render_mode="sector"`` the ``"fft"`` path renders through the sector
 renderer and absorbs its roll in the spectra; every other path renders
 "full", as in the JAX package. The step then RIDF-min-pools the per-lag
 minimum over each heading's tolerance window and decides: tie-ordered
-argmin, kinematics, stop rules. The episode
+argmin, kinematics, stop rules, in one kernel on the card
+(:mod:`navdv_torch.ops.decide`). The episode
 (:func:`make_navigate_batch_fn`) is a Python loop over ``max_steps`` with
 done-masking; nothing in it waits for the device unless ``early_exit`` asks
 whether every agent is done. :func:`make_navigate_batch` replays it as CUDA
@@ -53,6 +54,15 @@ from navdv_torch.familiarity_conv import make_fam_conv
 from navdv_torch.familiarity_fft import make_lib_min_fft
 from navdv_torch.familiarity_infomax import make_lib_min_infomax
 from navdv_torch.familiarity_roll import make_lib_min_roll
+from navdv_torch.ops.decide import (  # noqa: F401 (the status codes are agent.STATUS_*)
+    STATUS_DIVERGED,
+    STATUS_OFF,
+    STATUS_REACHED,
+    STATUS_RUNNING,
+    Route,
+    decide_constants,
+)
+from navdv_torch.ops.decide import decide as ops_decide
 from navdv_torch.ops.familiarity import make_lib_min_kernel
 from navdv_torch.sensor import (
     make_lag_stats,
@@ -61,14 +71,9 @@ from navdv_torch.sensor import (
     make_render_batch_rolled,
     make_views_from_pooled,
     scan_lag_sets,
-    scan_shift_sets,
 )
 from navdv_torch.utils.profiling import stage
 
-STATUS_RUNNING = 0
-STATUS_REACHED = 1
-STATUS_DIVERGED = 2
-STATUS_OFF = 3
 
 # candidate-extraction fp32 elements per agent before the (L x P) lag stack
 # is split into chunks (bounds the [B, L, P] transient at big sensors)
@@ -173,62 +178,19 @@ def lib_pmin(m: torch.Tensor, lib_axis) -> torch.Tensor:
 lib_pmin.calls = 0
 
 
-def point_to_polyline_dist(p: torch.Tensor, st: EpisodeStatics) -> torch.Tensor:
-    """Min point-to-segment distance from each p f32[B, 2] to the training
-    route -> f32[B]."""
-    rel = p[:, None, :] - st.route_a  # [B, Nseg, 2]
-    t = (torch.sum(rel * st.route_ab, dim=2) / st.route_denom).clamp(0.0, 1.0)
-    proj = st.route_a + t[:, :, None] * st.route_ab
-    return torch.sqrt(torch.min(torch.sum((p[:, None, :] - proj) ** 2, dim=2), dim=1).values)
-
-
 def _make_decide(cfg: SimConfig, device):
     """Post-familiarity logic, batched: argmin -> kinematics -> stop
-    conditions. ``decide(states, fam f32[B, Nh], st) -> (states', StepRecord)``."""
-    sensor, ag = cfg.sensor, cfg.agent
-    shifts, _ = scan_shift_sets(cfg.scan)
-    shifts_dev = torch.as_tensor(shifts, dtype=torch.float32, device=device)
-    tie_order = torch.as_tensor(cfg.scan.tie_order(), dtype=torch.long, device=device)
-    binw = sensor.bin_width
+    conditions, one launch of the decide kernel on the card
+    (:func:`navdv_torch.ops.decide.decide`). ``decide(states, fam f32[B,
+    Nh], st) -> (states', StepRecord)``."""
+    consts = decide_constants(cfg, device)
 
     def decide(state: AgentState, fam: torch.Tensor, st: EpisodeStatics):
-        # ties -> smallest |shift|, then lowest index: argmin (first minimum)
-        # over the tie-order permutation implements the rule exactly
-        k = tie_order[torch.argmin(fam[:, tie_order], dim=1)]
-        theta_new = state.theta + shifts_dev[k] * binw
-        xy_new = state.xy + ag.step_size * torch.stack(
-            [torch.cos(theta_new), torch.sin(theta_new)], dim=1
-        )
-
-        reached = torch.sum((xy_new - st.goal) ** 2, dim=1) <= ag.goal_radius**2
-        dist_route = point_to_polyline_dist(xy_new, st)
-        diverged = dist_route > ag.corridor
-        hl, wl = st.landscape.shape
-        margin = sensor.r_max
-        x, y = xy_new[:, 0], xy_new[:, 1]
-        off = ~((x >= margin) & (x <= wl - 1 - margin) & (y >= margin) & (y <= hl - 1 - margin))
-        # priority: reached > diverged > off
-        new_status = torch.where(
-            reached,
-            STATUS_REACHED,
-            torch.where(diverged, STATUS_DIVERGED, torch.where(off, STATUS_OFF, STATUS_RUNNING)),
-        ).to(torch.int32)
-
-        was_done = state.done
-        out = AgentState(
-            xy=torch.where(was_done[:, None], state.xy, xy_new),
-            theta=torch.where(was_done, state.theta, theta_new),
-            done=was_done | (new_status != STATUS_RUNNING),
-            status=torch.where(was_done, state.status, new_status),
-        )
-        rec = StepRecord(
-            xy=out.xy,
-            theta=out.theta,
-            fam=torch.gather(fam, 1, k[:, None])[:, 0],
-            k=k.to(torch.int32),
-            dist_route=dist_route,
-            done=was_done,
-        )
+        route = Route(st.route_a, st.route_ab, st.route_denom, st.goal)
+        d = ops_decide(*state, fam, route, tuple(st.landscape.shape), consts)
+        out = AgentState(xy=d.xy, theta=d.theta, done=d.done, status=d.status)
+        rec = StepRecord(xy=d.xy, theta=d.theta, fam=d.fam, k=d.k, dist_route=d.dist_route,
+                         done=state.done)
         return out, rec
 
     return decide

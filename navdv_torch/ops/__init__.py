@@ -8,13 +8,14 @@ a plain integer count of its kernel launches, read and reset through
 
 from __future__ import annotations
 
-from navdv_torch.ops import familiarity, lag, render, window
+from navdv_torch.ops import decide, familiarity, lag, render, window
 
 _WRAPPERS = {
     "window_gather": window.window_gather,
     "render": render.render_windows,
     "min_distance": familiarity.min_distance_rows,
     "lag_fam": lag.lag_lib_min,
+    "decide": decide.decide,
 }
 
 

@@ -53,7 +53,7 @@ def test_wrappers_take_plain_path_on_cpu_only(small_world):
     lag_lib_min(a.reshape(4, 2, 12), a[:3], torch.zeros(3), sensor,
                 torch.arange(-2, 3, dtype=torch.int32))
     assert ops.launch_counts() == {"window_gather": 0, "render": 0, "min_distance": 0,
-                                   "lag_fam": 0}
+                                   "lag_fam": 0, "decide": 0}
     meta = torch.empty(8, 12, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         min_distance_rows(meta, meta[:3], torch.empty(3, device="meta"), -2.0, True)
