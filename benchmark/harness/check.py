@@ -1,8 +1,11 @@
 """The comparison that decides ``correct``.
 
-The program's outputs are judged against the plain reference
-(``reference/navref.py``), which works everything out again from the
-landscape, the route and the configuration file:
+The program's outputs are judged against the plain reference that the
+configuration file names under ``"reference"``: a module of
+``benchmark/reference/``, ``navref`` where the file names none. It works
+everything out again from the landscape, the route and the configuration
+file, and every call the comparison makes to a reference goes through that
+module:
 
 - ``lib_err``: the library the program trained against the reference's,
   max |difference| / max |reference view|;
@@ -21,8 +24,9 @@ landscape, the route and the configuration file:
   pose. ``fam_err`` is the widest |program's familiarity - reference's| at
   the program's chosen heading, ``decision_gap`` the widest amount by which
   the reference's familiarity at that heading lies above the reference's
-  best; both over the candidate view's squared norm at that pose (the
-  scale of the float rounding in an SSD).
+  best; both over the reference's ``scale`` at that pose (navref's: the
+  candidate view's squared norm plus the largest stored view's, the
+  magnitude of an SSD's terms and so the scale of its float rounding).
 
 The reference follows the program step by step from the program's own
 previous pose: a trajectory that branched at a near-tie would otherwise be
@@ -32,18 +36,18 @@ reference's kinematics, so the chain is checked link by link.
 
 The control (``control=True``) reads, at the same poses, the reference
 computed in float32 in the program's place: the gap of the heading float32
-puts first, and its familiarity's error there; and the library pooled from
-an fp8 panorama in place of a bf16 one.
+puts first, and its familiarity's error there; and the library trained
+from an fp8 panorama (navref pools it in place of a bf16 one).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
+import re
 
 import numpy as np
 import torch
-
-from reference import navref
 
 POSE_TOL = 1e-3  # world units: a float32 step of a pose far below a fine bin's 0.017 rad
 THETA_TOL = 1e-4  # rad
@@ -61,7 +65,16 @@ class Episode:
     success: float  # the success rate as read on the host
 
 
-def _trajectory_checks(spec, route_t, hw, ep: Episode, dev):
+def reference_of(config: dict):
+    """The reference module the configuration names (``navref`` by
+    default), from ``benchmark/reference/``."""
+    name = config.get("reference", "navref")
+    if not re.fullmatch(r"[A-Za-z_][A-Za-z0-9_]*", name):
+        raise ValueError(f"reference {name!r} is not a module name")
+    return importlib.import_module(f"reference.{name}")
+
+
+def _trajectory_checks(ref, spec, route_t, hw, ep: Episode, dev):
     """(pose mismatches, status mismatches, ambiguous agents, active poses)
     of one episode; the active poses are (prev xy, prev theta, k, fam) of
     every step an agent took."""
@@ -75,20 +88,20 @@ def _trajectory_checks(spec, route_t, hw, ep: Episode, dev):
     act = ~r_done
     k = r_k.long()
     bad = (k < 0) | (k >= spec.n_headings)
-    xy_new, th_new = navref.advance(prev_xy.reshape(-1, 2), prev_th.reshape(-1),
-                                    k.clamp(0, spec.n_headings - 1).reshape(-1), spec)
+    xy_new, th_new = ref.advance(prev_xy.reshape(-1, 2), prev_th.reshape(-1),
+                                 k.clamp(0, spec.n_headings - 1).reshape(-1), spec)
     dxy = (r_xy.double().reshape(-1, 2) - xy_new).abs().amax(dim=1).reshape(b, t_max)
     dth = (r_th.double().reshape(-1) - th_new).abs().reshape(b, t_max)
-    dist = navref.polyline_dist(r_xy.double().reshape(-1, 2), route_t).reshape(b, t_max)
+    dist = ref.polyline_dist(r_xy.double().reshape(-1, 2), route_t).reshape(b, t_max)
     ddist = (r_dist.double() - dist).abs()
     bad |= act & ((dxy > POSE_TOL) | (dth > THETA_TOL) | (ddist > POSE_TOL))
     bad |= r_done & ((r_xy != prev_xy).any(dim=2) | (r_th != prev_th))
     pose_mismatch = int(bad.sum())
 
-    status, amb = navref.stop_status(r_xy.double().reshape(-1, 2), route_t, hw, spec,
-                                     STATUS_BAND)
+    status, amb = ref.stop_status(r_xy.double().reshape(-1, 2), route_t, hw, spec,
+                                  STATUS_BAND)
     status, amb = status.reshape(b, t_max), amb.reshape(b, t_max)
-    stops = act & (status != navref.STATUS_RUNNING)
+    stops = act & (status != ref.STATUS_RUNNING)
     done_after = torch.cumsum(stops.long(), dim=1) > 0  # finished after step t
     expect_done = torch.cat([torch.zeros_like(done_after[:, :1]), done_after[:, :-1]], dim=1)
     first = torch.where(stops.any(dim=1), stops.long().argmax(dim=1), 0)
@@ -96,21 +109,14 @@ def _trajectory_checks(spec, route_t, hw, ep: Episode, dev):
     ambiguous = (amb & act).any(dim=1)
     agent_bad = ((r_done != expect_done).any(dim=1)
                  | (f_status.long() != ref_status)
-                 | (f_done != (ref_status != navref.STATUS_RUNNING))
+                 | (f_done != (ref_status != ref.STATUS_RUNNING))
                  | (f_xy != r_xy[:, -1]).any(dim=1) | (f_th != r_th[:, -1]))
     status_mismatch = int((agent_bad & ~ambiguous).sum())
-    reached = float((f_status == navref.STATUS_REACHED).float().mean())
+    reached = float((f_status == ref.STATUS_REACHED).float().mean())
     if abs(ep.success - reached) > 1e-6:
         status_mismatch += 1
     poses = (prev_xy[act], prev_th[act], k[act], r_fam[act])
     return pose_mismatch, status_mismatch, int(ambiguous.sum()), poses
-
-
-def energy(s: torch.Tensor, spec) -> torch.Tensor:
-    """A candidate view's squared norm at each pose: sum of fl32(S / u)^2
-    over the panorama / u."""
-    x = (s.float() * (1.0 / spec.az_upsample)).double()
-    return (x * x).sum(dim=(1, 2)) / spec.az_upsample
 
 
 def judge(config: dict, landscape: torch.Tensor, route: np.ndarray, spacing: float,
@@ -120,16 +126,17 @@ def judge(config: dict, landscape: torch.Tensor, route: np.ndarray, spacing: flo
     readings of ``lib_err``, ``fam_err`` and ``decision_gap`` under names
     ending in ``_control``)."""
     dev = landscape.device
-    spec = navref.spec_from_config(config)
+    ref = reference_of(config)
+    spec = ref.spec_from_config(config)
     route_t = torch.from_numpy(np.asarray(route, np.float64)).to(dev)
     hw = tuple(landscape.shape)
-    lib = navref.train_library(landscape, route, spacing, spec)
+    lib = ref.train_library(landscape, route, spacing, spec)
     ref_scale = float(lib.abs().max())
     out = {"lib_err": float((program_library.to(dev).double() - lib).abs().max()) / ref_scale}
 
     counts, parts = np.zeros(3, dtype=np.int64), []
     for ep in episodes:
-        *found, poses = _trajectory_checks(spec, route_t, hw, ep, dev)
+        *found, poses = _trajectory_checks(ref, spec, route_t, hw, ep, dev)
         counts += found
         parts.append(poses)
     out.update(pose_mismatch=int(counts[0]), status_mismatch=int(counts[1]),
@@ -141,9 +148,9 @@ def judge(config: dict, landscape: torch.Tensor, route: np.ndarray, spacing: flo
                                                                  replace=False))
     pick_t = torch.from_numpy(pick).to(dev)
     xy, th, k, fam = xy[pick_t], th[pick_t], k[pick_t], fam[pick_t]
-    s = navref.pooled(navref.render_sensor(landscape, xy, th, spec), spec)
-    e = energy(s, spec)
-    f64 = navref.familiarity_blocked(s, lib, spec)
+    s = ref.candidate_panorama(landscape, xy, th, spec)
+    e = ref.scale(s, lib, spec)
+    f64 = ref.familiarity_blocked(s, lib, spec)
     best = f64.min(dim=1).values
     at_k = f64.gather(1, k[:, None])[:, 0]
     out["fam_err"] = float(((fam.double() - at_k).abs() / e).max())
@@ -153,15 +160,15 @@ def judge(config: dict, landscape: torch.Tensor, route: np.ndarray, spacing: flo
         tf32 = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = False
         try:
-            f32 = navref.familiarity_blocked(s, lib, spec, torch.float32).double()
+            f32 = ref.familiarity_blocked(s, lib, spec, torch.float32).double()
         finally:
             torch.backends.cuda.matmul.allow_tf32 = tf32
-        k32 = navref.choose(f32, spec)
+        k32 = ref.choose(f32, spec)
         at_k32 = f64.gather(1, k32[:, None])[:, 0]
         out["fam_err_control"] = float(((f32.gather(1, k32[:, None])[:, 0] - at_k32).abs()
                                         / e).max())
         out["decision_gap_control"] = float(((at_k32 - best) / e).max())
-        lib8 = navref.train_library(landscape, route, spacing, spec, torch.float8_e4m3fn)
+        lib8 = ref.train_library(landscape, route, spacing, spec, torch.float8_e4m3fn)
         out["lib_err_control"] = float((lib8 - lib).abs().max()) / ref_scale
     return out
 

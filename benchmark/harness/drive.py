@@ -2,10 +2,11 @@
 traced slice, and the comparison.
 
 Single-card cells drive ``navdv_torch.simulator.NavigationSimulator
-.navigate(starts=..., headings=...)``, trained once in set-up with
-``fam_impl="auto"``. Each episode is one call: one batch of fresh trials,
-from the call until its success rate is on the host. The loop is closed:
-each batch waits for the last, as a researcher's sweep of trials does.
+.navigate(starts=..., headings=...)``, trained once in set-up with the
+configuration's ``fam_impl_arg`` ("auto" where it states none). Each
+episode is one call: one batch of fresh trials, from the call until its
+success rate is on the host. The loop is closed: each batch waits for the
+last, as a researcher's sweep of trials does.
 """
 
 from __future__ import annotations
@@ -54,15 +55,28 @@ def make_world(cell: Cell, seed: int, device):
     return land, route, spacing, pts, headings
 
 
+def fam_impl_arg(config: dict, cfg) -> str:
+    """The ``fam_impl`` the program is given: the configuration's
+    ``fam_impl_arg``, "auto" where it states none. Raises unless the
+    program resolves it to the path the configuration states
+    (``fam_impl``)."""
+    from navdv_torch.agent import resolve_fam_impl
+
+    arg = config.get("fam_impl_arg", "auto")
+    resolved = resolve_fam_impl(cfg, arg)
+    if resolved != config["fam_impl"]:
+        raise RuntimeError(f"fam_impl={arg!r} resolved to {resolved!r}, the configuration "
+                           f"states {config['fam_impl']!r}")
+    return arg
+
+
 def setup_single(cell: Cell, seed: int, device) -> Setup:
     from navdv_torch.simulator import NavigationSimulator
 
     land, route, spacing, pts, headings = make_world(cell, seed, device)
-    sim = NavigationSimulator(sim_config(cell.config, spacing), land.clone(), route,
-                              fam_impl="auto", device=device).train()
-    if sim.fam_impl != cell.config["fam_impl"]:
-        raise RuntimeError(f"fam_impl='auto' resolved to {sim.fam_impl!r}, the configuration "
-                           f"states {cell.config['fam_impl']!r}")
+    cfg = sim_config(cell.config, spacing)
+    sim = NavigationSimulator(cfg, land.clone(), route, fam_impl=fam_impl_arg(cell.config, cfg),
+                              device=device).train()
 
     def call(starts, thetas):
         r = sim.navigate(starts=starts, headings=thetas)

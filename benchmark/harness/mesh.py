@@ -8,7 +8,8 @@ run's: it prints the result line. The others log to files under ``TMPDIR``,
 whose tails are shown when a rank fails.
 
 Each rank drives ``navdv_torch.parallel.make_navigate_sharded(cfg,
-make_mesh(n_data, n_lib), fam_impl)`` on ``shard_statics``: every rank
+make_mesh(n_data, n_lib), fam_impl)`` on ``shard_statics``, with the
+configuration's ``fam_impl_arg`` ("auto" where it states none): every rank
 trains the whole library from the same world, keeps its shard, prepares it
 once, and calls the run with the same global trials; the step's
 ``all_reduce(MIN)`` joins the shards. After each episode the success rate
@@ -123,7 +124,7 @@ def run_rank(cell: Cell, seed: int, seconds: float, traced_run: bool, device_typ
     cfg = drive.sim_config(cell.config, spacing)
     lib = train_library(land, route, cfg, device=dev)
     st = shard_statics(make_statics(land.clone(), lib, route, dev), mesh)
-    nav = make_navigate_sharded(cfg, mesh, cell.config["fam_impl"])
+    nav = make_navigate_sharded(cfg, mesh, drive.fam_impl_arg(cell.config, cfg))
     aux = None if nav.prepare is None else nav.prepare(st)
 
     def call(starts, thetas):

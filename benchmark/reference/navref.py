@@ -27,7 +27,17 @@ states where that class is part of the definition, and float64 elsewhere:
   configuration ships), computed here by ``torch.fft``; distances clamp at 0;
 - the decision: the tie-ordered argmin (smallest |shift| first, then the
   lowest index), one step along the new heading, and the stop rules
-  (reached > diverged > off the landscape), with finished agents frozen.
+  (reached > diverged > off the landscape), with finished agents frozen;
+- the scale of ``fam_err`` and ``decision_gap`` (:func:`scale`): the
+  candidate view's squared norm plus the largest stored view's, the
+  magnitude of an SSD's terms and so the scale of its float rounding.
+
+A configuration file names the reference that judges it under
+``"reference"`` (this module where it names none). Every reference module
+gives the comparison (``harness/check.py``) these names: ``spec_from_config``,
+``train_library``, ``candidate_panorama``, ``scale``, ``familiarity_blocked``,
+``choose``, ``advance``, ``polyline_dist``, ``stop_status`` and the
+``STATUS_*`` codes.
 """
 
 from __future__ import annotations
@@ -81,10 +91,9 @@ class Spec:
         return np.array(sorted(range(self.n_headings), key=lambda k: (abs(int(s[k])), k)))
 
 
-def spec_from_config(config: dict) -> Spec:
+def read_spec(config: dict) -> Spec:
+    """The configuration file's :class:`Spec`, whatever its metric."""
     sensor, scan, agent = config["sim"]["sensor"], config["sim"]["scan"], config["sim"]["agent"]
-    if scan["metric"] != "ssd" or scan["tol_bins"] != 0:
-        raise ValueError("the reference covers SSD without a rotation tolerance")
     return Spec(
         n_radial=sensor["n_radial"], n_azimuth=sensor["n_azimuth"],
         az_upsample=sensor["az_upsample"], r_min=sensor["r_min"], r_max=sensor["r_max"],
@@ -95,6 +104,13 @@ def spec_from_config(config: dict) -> Spec:
         goal_radius=agent["goal_radius"], corridor=agent["corridor"],
         max_steps=agent["max_steps"],
     )
+
+
+def spec_from_config(config: dict) -> Spec:
+    spec = read_spec(config)
+    if spec.metric != "ssd" or spec.tol_bins != 0:
+        raise ValueError("the reference covers SSD without a rotation tolerance")
+    return spec
 
 
 # --- route -------------------------------------------------------------------
@@ -141,21 +157,23 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
-def render_sensor(landscape: torch.Tensor, xy: torch.Tensor, theta: torch.Tensor,
-                  spec: Spec) -> torch.Tensor:
-    """The recall sensor's panorama f32[N, R, A] in the configuration's
-    rounding class, from f32 poses."""
-    land = landscape.float()
+def window_size(spec: Spec) -> int:
+    """Side of the square window round the agent that holds its footprint."""
+    return int(np.ceil(2 * spec.r_max)) + 4
+
+
+def polar_samples(land: torch.Tensor, bx: torch.Tensor, by: torch.Tensor, fx: torch.Tensor,
+                  fy: torch.Tensor, c: torch.Tensor, s: torch.Tensor, spec: Spec,
+                  pad: int = 0) -> torch.Tensor:
+    """The panorama f32[N, R, A] sampled, in the configuration's rounding
+    class, in each pose's square window: corner (bx, by) i32[N] on the
+    landscape edge-replicated by ``pad`` cells, in-window position (fx, fy)
+    and rotation (c, s), each f32[N, 1, 1]. A sample at in-window (xs, ys)
+    is ``(fx, fy) + Rot @ offsets``, clamped to the window, blended from its
+    four taps by hat weights."""
     h, w = land.shape
-    wsz = int(np.ceil(2 * spec.r_max)) + 4
-    half = wsz // 2
+    wsz = window_size(spec)
     dx0, dy0 = (torch.from_numpy(o.astype(np.float32)).to(land.device) for o in offsets(spec))
-    xy, theta = xy.float(), theta.float()
-    bx = (torch.floor(xy[:, 0]).to(torch.int32) - half).clamp(0, w - wsz)
-    by = (torch.floor(xy[:, 1]).to(torch.int32) - half).clamp(0, h - wsz)
-    fx = (xy[:, 0] - bx.float())[:, None, None]
-    fy = (xy[:, 1] - by.float())[:, None, None]
-    c, s = torch.cos(theta)[:, None, None], torch.sin(theta)[:, None, None]
     xs = ((fx + c * dx0) - s * dy0).clamp(0.0, wsz - 1.0)
     ys = ((fy + s * dx0) + c * dy0).clamp(0.0, wsz - 1.0)
     x0 = torch.floor(xs).clamp(max=wsz - 2)
@@ -165,16 +183,38 @@ def render_sensor(landscape: torch.Tensor, xy: torch.Tensor, theta: torch.Tensor
         return (1.0 - (t - q).abs()).clamp_min(0.0)
 
     wx0, wx1, wy0, wy1 = hat(xs, x0), hat(xs, x0 + 1.0), hat(ys, y0), hat(ys, y0 + 1.0)
-    xi = bx.long()[:, None, None] + x0.long()
-    yi = by.long()[:, None, None] + y0.long()
-    v00, v01 = land[yi, xi], land[yi, xi + 1]
-    v10, v11 = land[yi + 1, xi], land[yi + 1, xi + 1]
+    xi = bx.long()[:, None, None] + x0.long() - pad
+    yi = by.long()[:, None, None] + y0.long() - pad
+    if pad:  # the padded landscape's cell (y, x) is the landscape's nearest edge cell
+        xi, xj = xi.clamp(0, w - 1), (xi + 1).clamp(0, w - 1)
+        yi, yj = yi.clamp(0, h - 1), (yi + 1).clamp(0, h - 1)
+    else:
+        xj, yj = xi + 1, yi + 1
+    v00, v01 = land[yi, xi], land[yi, xj]
+    v10, v11 = land[yj, xi], land[yj, xj]
     if spec.hat_dtype == "bfloat16":
         wx0, wx1, wy0, wy1 = _bf16(wx0), _bf16(wx1), _bf16(wy0), _bf16(wy1)
         v00, v01, v10, v11 = _bf16(v00), _bf16(v01), _bf16(v10), _bf16(v11)
     elif spec.hat_dtype != "float32":
         raise ValueError(f"unknown hat_dtype {spec.hat_dtype!r}")
     return wy0 * (wx0 * v00 + wx1 * v01) + wy1 * (wx0 * v10 + wx1 * v11)
+
+
+def render_sensor(landscape: torch.Tensor, xy: torch.Tensor, theta: torch.Tensor,
+                  spec: Spec) -> torch.Tensor:
+    """The recall sensor's panorama f32[N, R, A] in the configuration's
+    rounding class, from f32 poses."""
+    land = landscape.float()
+    h, w = land.shape
+    wsz = window_size(spec)
+    half = wsz // 2
+    xy, theta = xy.float(), theta.float()
+    bx = (torch.floor(xy[:, 0]).to(torch.int32) - half).clamp(0, w - wsz)
+    by = (torch.floor(xy[:, 1]).to(torch.int32) - half).clamp(0, h - wsz)
+    fx = (xy[:, 0] - bx.float())[:, None, None]
+    fy = (xy[:, 1] - by.float())[:, None, None]
+    c, s = torch.cos(theta)[:, None, None], torch.sin(theta)[:, None, None]
+    return polar_samples(land, bx, by, fx, fy, c, s, spec)
 
 
 def pooled(pano: torch.Tensor, spec: Spec) -> torch.Tensor:
@@ -205,7 +245,31 @@ def train_library(landscape: torch.Tensor, route: np.ndarray, spacing: float,
     return view.double().reshape(n, spec.n_radial, spec.n_azimuth)
 
 
+def candidate_panorama(landscape: torch.Tensor, xy: torch.Tensor, theta: torch.Tensor,
+                       spec: Spec) -> torch.Tensor:
+    """What :func:`familiarity` scores at each pose: the pooled panorama S
+    f64[N, R, A] of the recall sensor."""
+    return pooled(render_sensor(landscape, xy, theta, spec), spec)
+
+
 # --- familiarity -------------------------------------------------------------
+
+def scale(s: torch.Tensor, lib: torch.Tensor, spec: Spec) -> torch.Tensor:
+    """The scale of the float rounding in an SSD at each pose, which divides
+    ``fam_err`` and ``decision_gap``: the magnitude of its terms, the
+    candidate view's squared norm (the sum of fl32(S / u)^2 over the
+    panorama / u) plus the largest stored view's (as :func:`familiarity`
+    sums it, in float32). The cross term of non-negative pixels is not
+    negative, so an SSD is at most about that sum, and a familiarity
+    rounded once to float32 reads at most about 2^-24 of it. The
+    candidate's norm alone bounds nothing: where the candidate is dark and
+    the nearest view is not, the SSD is several times the candidate's norm,
+    and a correctly rounded float32 can read above 1e-7 of it."""
+    x = (s.float() * (1.0 / spec.az_upsample)).double()
+    z32 = lib.float().reshape(lib.shape[0], -1)
+    lsq = (z32 * z32).sum(dim=1).double()
+    return (x * x).sum(dim=(1, 2)) / spec.az_upsample + lsq.max()
+
 
 def familiarity(s: torch.Tensor, lib: torch.Tensor, spec: Spec,
                 dtype: torch.dtype = torch.float64) -> torch.Tensor:

@@ -7,6 +7,10 @@ per-layer metric's reader, with their entries in that copy's
 The fixture is small enough for the CPU: a 4x24 sensor at az_upsample 3, 12
 headings, 12 stored views, 15 steps, 4 agents, on the exact ``"kernel"``
 path (``fam_impl="auto"`` picks it for sensors under 512 pixels).
+:data:`SECTOR_TINY` is config 3's shape at that size: a 4x48 sensor at
+az_upsample 1 on the sector renderer's fused front end, NCC at a 3-bin
+tolerance, the spectral series cut at 8 bins, judged by ``sector_ncc``; it
+states ``fam_impl_arg`` "fft", which "auto" would not pick at 192 pixels.
 """
 
 from __future__ import annotations
@@ -39,6 +43,17 @@ TINY = {
     "limits": {"lib_err": 1e-3, "pose_mismatch": 0, "status_mismatch": 0, "fam_err": 1e-8,
                "decision_gap": 1e-8},
 }
+SECTOR_TINY = dict(
+    TINY, what="config 3's shape at a CPU size", fam_impl="fft", fam_impl_arg="fft",
+    familiarity="fft", reference="sector_ncc",
+    sim={"sensor": {"n_radial": 4, "n_azimuth": 48, "az_upsample": 1, "r_min": 2.0,
+                    "r_max": 10.0, "hat_dtype": "bfloat16", "render_mode": "sector",
+                    "n_sectors": 8},
+         "scan": {"n_headings": 12, "scan_step_bins": 2, "metric": "ncc", "tol_bins": 3,
+                  "fused_dft_precision": "default", "spectral_cutoff": 8},
+         "agent": TINY["sim"]["agent"]},
+    limits={"lib_err": 1e-3, "pose_mismatch": 0, "status_mismatch": 0, "fam_err": 1.5e-7,
+            "decision_gap": 1.2e-7})
 FEW = {"why": "4 agents a call", "batch": 4, "pos_sigma": 1.5, "heading_sigma": 0.15,
        "trace_episodes": 2, "check": {"episodes": 2, "poses": 48}}
 READER = '''"""Steps in the traced slice (a fixture's metric)."""
@@ -49,16 +64,18 @@ def read(trace):
 '''
 
 
-def make_checkout(tmp: Path, mesh: list | None = None) -> Path:
-    """A checkout in ``tmp`` with the fixture cell ``fixture_cell`` (and,
-    with ``mesh``, the cell ``fixture_mesh`` of the same configuration on
-    that (data, lib) mesh of CPU ranks)."""
+def make_checkout(tmp: Path, mesh: list | None = None, config: dict | None = None) -> Path:
+    """A checkout in ``tmp`` with the fixture cell ``fixture_cell`` of the
+    configuration ``config`` (:data:`TINY` by default), and, with ``mesh``,
+    the cell ``fixture_mesh`` of the same configuration on that (data, lib)
+    mesh of CPU ranks."""
     tmp = Path(tmp)
+    config = dict(config or TINY, name="fixture_tiny")
     shutil.copy(ROOT / "BENCHMARK.json", tmp / "BENCHMARK.json")
     shutil.copytree(BENCH, tmp / "benchmark",
                     ignore=shutil.ignore_patterns("tests", "__pycache__"))
     bench = json.loads((tmp / "BENCHMARK.json").read_text())
-    (tmp / "benchmark" / "configs" / "fixture_tiny.json").write_text(json.dumps(TINY))
+    (tmp / "benchmark" / "configs" / "fixture_tiny.json").write_text(json.dumps(config))
     (tmp / "benchmark" / "traffic" / "fixture_few.json").write_text(json.dumps(FEW))
     (tmp / "benchmark" / "metrics" / "fixture_steps.py").write_text(READER)
     bench["configs"].append({"name": "fixture_tiny", "source": "a test fixture",
@@ -68,8 +85,8 @@ def make_checkout(tmp: Path, mesh: list | None = None) -> Path:
                                "traffic": "fixture_few", "chips": 1, "why": "CPU-sized"})
     cells = ["fixture_cell"]
     if mesh is not None:
-        meshed = dict(TINY, name="fixture_tiny_mesh", mesh=mesh,
-                      limits=dict(TINY["limits"], min_calls_off=0, rank_mismatch=0))
+        meshed = dict(config, name="fixture_tiny_mesh", mesh=mesh,
+                      limits=dict(config["limits"], min_calls_off=0, rank_mismatch=0))
         (tmp / "benchmark" / "configs" / "fixture_tiny_mesh.json").write_text(json.dumps(meshed))
         bench["configs"].append({"name": "fixture_tiny_mesh", "source": "a test fixture",
                                  "file": "benchmark/configs/fixture_tiny_mesh.json",

@@ -8,7 +8,8 @@ import re
 
 import pytest
 
-from fixture import BENCH, ROOT, make_checkout
+import navdv_torch.simulator as simulator
+from fixture import BENCH, ROOT, TINY, make_checkout
 from harness import drive
 from harness.cells import find_cell, load_benchmark, load_reader
 
@@ -71,17 +72,22 @@ def test_benchmark_json_keeps_the_contract():
     assert len(json.dumps(b)) <= 64 * 1024
 
 
+# the cells so far, in order: a later cell is added after them as data
+KNOWN_CELLS = [("fft_lib50_b1024", 1), ("roll_lib500_b512", 1), ("fft_lib50_b1", 1),
+               ("roll_lib500_b512_mesh1x4", 4), ("sector_lib50_b256", 1)]
+
+
 def test_the_cells_in_their_order():
-    assert CELLS == ["fft_lib50_b1024", "roll_lib500_b512", "fft_lib50_b1",
-                     "roll_lib500_b512_mesh1x4"]
-    assert [w["chips"] for w in BENCHMARK["workloads"]] == [1, 1, 1, 4]
+    cells = [(w["name"], w["chips"]) for w in BENCHMARK["workloads"]]
+    assert cells[:len(KNOWN_CELLS)] == KNOWN_CELLS
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_each_cell_is_found_as_data(name):
     cell = find_cell(name, ROOT)
     assert cell.config["name"] == cell.config_name
-    assert cell.traffic["batch"] in (1, 512, 1024)
+    batch = cell.traffic["batch"]
+    assert isinstance(batch, int) and not isinstance(batch, bool) and batch > 0
     assert {m["name"] for m in cell.end_to_end} >= {"setup_s"}
     for m in cell.per_layer:
         assert callable(load_reader(ROOT, m["name"]))
@@ -104,3 +110,25 @@ def test_a_cell_of_new_files_only_runs(tmp_path):
     assert traced["correct"] and traced["metrics"]["fixture_steps"]["value"] == 2 * 15
     # the repository's own cells are untouched by the fixture's
     assert find_cell("fft_lib50_b1024", root).config == find_cell("fft_lib50_b1024").config
+
+
+@pytest.mark.parametrize("arg", [None, "plain", "fft"])
+def test_a_configuration_states_the_path_it_asks_for(arg, tmp_path, monkeypatch):
+    config = dict(TINY) if arg is None else dict(TINY, fam_impl="plain", fam_impl_arg=arg)
+    cell = find_cell("fixture_cell", make_checkout(tmp_path, config=config))
+    given = []
+    real = simulator.NavigationSimulator.__init__
+
+    def init(self, cfg, landscape, route, fam_impl="auto", device=None):
+        given.append(fam_impl)
+        real(self, cfg, landscape, route, fam_impl=fam_impl, device=device)
+
+    monkeypatch.setattr(simulator.NavigationSimulator, "__init__", init)
+    if arg == "fft":  # the path the program resolves is not the one the file states
+        with pytest.raises(RuntimeError, match="resolved to 'fft'"):
+            drive.run_single(cell, 5, 0.2, False, "cpu", 0.0, lambda: None)
+        assert given == []
+        return
+    result = drive.run_single(cell, 5, 0.2, False, "cpu", 0.0, lambda: None)
+    assert result["correct"], result["checks"]
+    assert given == ["auto" if arg is None else arg]

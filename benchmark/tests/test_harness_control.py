@@ -1,8 +1,10 @@
 """The control fails where the program passes, at a size a test run holds:
 the configurations as shipped, a few agents, on the CPU. The control is the
 reference computed in float32 in the program's place (and the library
-pooled from fp8 in place of bf16); at the cells' own size it is read on the
-card by ``benchmark/calibrate.py``."""
+trained from an fp8 panorama); at the cells' own size it is read on the
+card by ``benchmark/calibrate.py``. Each configuration of a one-card cell
+states its CPU size under ``cpu_check``: agents a call, episodes and poses
+compared."""
 
 from __future__ import annotations
 
@@ -13,16 +15,20 @@ import pytest
 import fixture  # noqa: F401  (puts the harness and the program on the path)
 
 from harness import drive
-from harness.cells import find_cell
+from harness.cells import find_cell, load_benchmark
 
-SMALL = {"fft_lib50_b1024": {"batch": 16, "episodes": 2, "poses": 512},
-         "roll_lib500_b512": {"batch": 2, "episodes": 1, "poses": 48}}
+# the first one-card cell of each configuration
+FIRST = {}
+for w in load_benchmark()["workloads"]:
+    if w["chips"] == 1:
+        FIRST.setdefault(w["config"], w["name"])
 
 
-@pytest.mark.parametrize("name", sorted(SMALL))
+@pytest.mark.parametrize("name", list(FIRST.values()))
 def test_the_control_reads_above_the_limits(name):
     cell = find_cell(name)
-    small = SMALL[name]
+    small = cell.config.get("cpu_check")
+    assert small is not None, f"{cell.config_name} states no cpu_check size"
     traffic = dict(cell.traffic, batch=small["batch"],
                    check={"episodes": small["episodes"], "poses": small["poses"]})
     cell = dataclasses.replace(cell, traffic=traffic)

@@ -85,7 +85,8 @@ def test_the_guard_compares_whole_top_level_names(monkeypatch):
 
 def test_nothing_the_harness_imports_loads_jax():
     code = ("import sys; sys.path[:0] = [sys.argv[1], sys.argv[2]]\n"
-            "import harness.drive, harness.mesh, harness.check, harness.trace, reference.navref\n"
+            "import harness.drive, harness.mesh, harness.check, harness.trace\n"
+            "import reference.navref, reference.sector_ncc\n"
             "import navdv_torch.simulator, navdv_torch.parallel, navdv_torch.training\n"
             "bad = {'jax', 'jaxlib', 'flax', 'navdv_tpu'}\n"
             "print(sorted({m.split('.')[0] for m in sys.modules} & bad))")
@@ -95,7 +96,8 @@ def test_nothing_the_harness_imports_loads_jax():
     assert p.stdout.strip() == "[]"
 
 
-def test_the_reference_imports_neither_the_program_nor_jax():
-    text = (BENCH / "reference" / "navref.py").read_text()
+@pytest.mark.parametrize("name", sorted(p.stem for p in (BENCH / "reference").glob("*.py")))
+def test_the_reference_imports_neither_the_program_nor_jax(name):
+    text = (BENCH / "reference" / f"{name}.py").read_text()
     assert "import jax" not in text and "navdv_tpu" not in text
     assert "from navdv" not in text and "import navdv" not in text

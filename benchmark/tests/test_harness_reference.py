@@ -97,6 +97,29 @@ def test_familiarity_and_decision_equal_the_port(kind):
     assert torch.allclose(new.theta.double(), th_new, atol=1e-6)
 
 
+@pytest.mark.parametrize("kind", ["fft", "exact"])
+def test_the_scale_bounds_the_rounding_of_a_familiarity(kind):
+    """The scale of ``fam_err`` is the magnitude of an SSD's terms: a
+    familiarity rounded once to float32 reads about 2^-24 of it at most,
+    also for a dark candidate against the bright stored views, where the
+    candidate's own norm is a small part of the SSD."""
+    config = CONFIGS[kind]
+    land, route, spacing, pts, headings = _setup(config)
+    spec = navref.spec_from_config(config)
+    lib = navref.train_library(land, route, spacing, spec)
+    xy, th = _poses(pts, headings)
+    s = navref.candidate_panorama(land, xy, th, spec)
+    for dim in (1.0, 0.05):
+        sd = s * dim
+        fam = navref.familiarity(sd, lib, spec)
+        e = navref.scale(sd, lib, spec)[:, None]
+        assert (fam >= 0).all() and (fam <= 1.01 * e).all()
+        assert float(((fam.float().double() - fam).abs() / e).max()) <= 1.01 * 2.0 ** -24
+    x = (sd.float() * (1.0 / spec.az_upsample)).double()
+    own = (x * x).sum(dim=(1, 2)) / spec.az_upsample
+    assert float((fam.min(dim=1).values / own).min()) > 2.0
+
+
 def test_exact_familiarity_equals_the_float64_oracle():
     # the oracle's own semantics: f32 hat, no bf16 rounding, exact SSD in fp64
     config = dict(TINY, sim={**TINY["sim"], "sensor": {**TINY["sim"]["sensor"],
