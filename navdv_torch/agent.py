@@ -328,6 +328,26 @@ def _step_from_fam(fam_of, decide):
     return step
 
 
+def _step_from_lag_min(lag_min, window_idx: torch.Tensor, decide):
+    """Assemble a batched step from its per-lag library minimum
+    ``lag_min(states, st, aux) -> M [B, L]``, which marks its own stages: the
+    RIDF min-pool over ``window_idx`` and the decision form the stage
+    ``decide``. ``step.fam`` is the pre-argmin familiarity, as in
+    :func:`_step_from_fam`."""
+
+    def fam_of(states: AgentState, st: EpisodeStatics, aux=None) -> torch.Tensor:
+        return torch.min(lag_min(states, st, aux)[:, window_idx], dim=2).values
+
+    def step(states: AgentState, st: EpisodeStatics, aux=None):
+        m = lag_min(states, st, aux)
+        with stage("decide"):
+            fam = torch.min(m[:, window_idx], dim=2).values  # [B, Nh]
+            return decide(states, fam, st)
+
+    step.fam = fam_of
+    return step
+
+
 def _make_sector_fam(cfg: SimConfig, lib_min, lags: np.ndarray, window_idx: torch.Tensor, dev,
                      lib_axis=None):
     """The spectral familiarity through the sector renderer (the JAX
@@ -419,11 +439,16 @@ def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None, lib
     four points.
 
     The step marks its stages on the device
-    (:func:`navdv_torch.utils.profiling.stage`): ``"fft"`` and ``"roll"``
-    with the full render mark ``front`` (render, window gather, pooled
-    panorama, lag statistics), ``familiarity``, ``lib_pmin`` (with a lib
-    axis) and ``decide`` (the RIDF min-pool and :func:`_make_decide`'s
-    decision); every other path marks ``familiarity`` and ``decide``.
+    (:func:`navdv_torch.utils.profiling.stage`): every path but ``"conv"``
+    and the sector renderer's marks ``front`` (render, window gather,
+    pooled panorama, lag statistics), ``familiarity``, ``lib_pmin`` (with a
+    lib axis) and ``decide`` (the RIDF min-pool and :func:`_make_decide`'s
+    decision). ``"kernel"``, ``"plain"`` and ``"infomax"`` mark the
+    candidate gathers as ``candidates`` between ``front`` and
+    ``familiarity`` when their lags form one chunk; with several, each
+    chunk's gather and score alternate inside ``familiarity``, since a
+    stage is marked once a step. ``"conv"`` and the sector renderer's path
+    mark ``familiarity`` and ``decide``.
     """
     dev = resolve_device(device)
     fam_impl = resolve_fam_impl(cfg, fam_impl)
@@ -453,41 +478,34 @@ def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None, lib
         step.lib_prepare = None
         return step
     pooled = make_pooled_panorama(cfg.sensor, dev)
-    ncc = cfg.scan.metric == "ncc"
+    # the lag statistics: NCC's mean and spread on every path but the
+    # kernel's (which sums its own), both metrics' on infomax
+    needs_stats = fam_impl == "infomax" or (cfg.scan.metric == "ncc" and fam_impl != "kernel")
+    lag_stats = make_lag_stats(cfg.sensor, lags, dev) if needs_stats else None
+
+    def front(states: AgentState, st: EpisodeStatics):
+        with stage("front"):
+            s = pooled(render_b(st.landscape, states.xy, states.theta))  # [B, R, A]
+            lag_sum = lag_sq = None
+            if lag_stats is not None:
+                lag_sum, lag_sq = lag_stats(s.double())  # [B, L] each
+        return s, lag_sum, lag_sq
 
     if fam_impl in ("fft", "roll"):
         make = make_lib_min_fft if fam_impl == "fft" else make_lib_min_roll
         lib_min_s = make(cfg.sensor, cfg.scan, lags, dev)
-        stats = make_lag_stats(cfg.sensor, lags, dev) if ncc else None
 
         def lag_min(states: AgentState, st: EpisodeStatics, aux) -> torch.Tensor:
-            with stage("front"):
-                s = pooled(render_b(st.landscape, states.xy, states.theta))  # [B, R, A]
-                lag_sum = lag_sq = None
-                if stats is not None:
-                    lag_sum, lag_sq = stats(s.double())  # [B, L] each
+            s, lag_sum, lag_sq = front(states, st)
             with stage("familiarity"):
                 m = lib_min_s(s, st.lib, lag_sum, lag_sq, aux)
             return lib_pmin(m, lib_axis)  # [B, L]
 
-        def fam_of(states: AgentState, st: EpisodeStatics, aux=None) -> torch.Tensor:
-            return torch.min(lag_min(states, st, aux)[:, window_idx_dev], dim=2).values
-
-        def step(states: AgentState, st: EpisodeStatics, aux=None):
-            m = lag_min(states, st, aux)
-            with stage("decide"):
-                fam = torch.min(m[:, window_idx_dev], dim=2).values  # [B, Nh]
-                return decide(states, fam, st)
-
-        step.fam = fam_of
+        step = _step_from_lag_min(lag_min, window_idx_dev, decide)
         step.lib_prepare = lambda st: lib_min_s.prepare(st.lib)
         return step
 
     lib_min = _make_lib_min(cfg, fam_impl, dev)
-    # the candidates' mean and spread: NCC on the plain path, every metric
-    # on infomax (the kernel sums its own)
-    needs_stats = fam_impl == "infomax" or (fam_impl == "plain" and ncc)
-    lag_stats = make_lag_stats(cfg.sensor, lags, dev) if needs_stats else None
     p = cfg.sensor.n_pixels
     n_lags = len(lags)
     chunk = max(1, FAM_CHUNK_ELEMS // p)
@@ -501,27 +519,31 @@ def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None, lib
         for lo, hi in chunk_bounds
     ]
 
-    def fam_of(states: AgentState, st: EpisodeStatics, aux=None) -> torch.Tensor:
-        pano = render_b(st.landscape, states.xy, states.theta)  # [B, R, A]
-        s = pooled(pano)  # [B, R, A]
-        lag_sum = lag_sq = None
-        if lag_stats is not None:
-            lag_sum, lag_sq = lag_stats(s.double())  # [B, L] each
-        parts = [
-            lib_min(
-                v(s),
-                st.lib,
-                None if lag_sum is None else lag_sum[:, lo:hi],
-                None if lag_sq is None else lag_sq[:, lo:hi],
-                aux,
-            )
-            for lo, hi, v in chunk_views
-        ]
-        m = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)  # [B, L]
-        m = lib_pmin(m, lib_axis)
-        return torch.min(m[:, window_idx_dev], dim=2).values  # [B, Nh]
+    def score(cand, lo, hi, st, lag_sum, lag_sq, aux):
+        return lib_min(cand, st.lib, None if lag_sum is None else lag_sum[:, lo:hi],
+                       None if lag_sq is None else lag_sq[:, lo:hi], aux)
 
-    step = _step_from_fam(fam_of, decide)
+    if len(chunk_views) == 1:
+        (lo, hi, views), = chunk_views
+
+        def lag_min(states: AgentState, st: EpisodeStatics, aux) -> torch.Tensor:
+            s, lag_sum, lag_sq = front(states, st)
+            with stage("candidates"):
+                cand = views(s)  # [B, L, P]
+            with stage("familiarity"):
+                m = score(cand, lo, hi, st, lag_sum, lag_sq, aux)
+            return lib_pmin(m, lib_axis)  # [B, L]
+    else:
+        # one chunk's candidates at a time: their gathers and scores alternate
+        # inside the one stage a step marks
+        def lag_min(states: AgentState, st: EpisodeStatics, aux) -> torch.Tensor:
+            s, lag_sum, lag_sq = front(states, st)
+            with stage("familiarity"):
+                m = torch.cat([score(v(s), lo, hi, st, lag_sum, lag_sq, aux)
+                               for lo, hi, v in chunk_views], dim=1)  # [B, L]
+            return lib_pmin(m, lib_axis)
+
+    step = _step_from_lag_min(lag_min, window_idx_dev, decide)
     prepare = getattr(lib_min, "prepare", None)  # infomax: train once per library
     step.lib_prepare = None if prepare is None else (lambda st: prepare(st.lib))
     return step

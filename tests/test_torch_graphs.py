@@ -371,6 +371,42 @@ def test_stage_marks_on_card(dev, monkeypatch, config, fam_impl, batch, views):
     assert 0.9 <= covered <= 1.0, rec.stages
 
 
+@pytest.mark.cuda
+def test_kernel_path_stage_marks_on_card(dev):
+    """BASELINE config 4 on ``kernel`` at the benchmark cell's shapes (1024
+    agents, 50 views): each replay of the captured episode adds one
+    min-distance launch a step; the graph captured inside a recording gives
+    the unmarked graph's episode bit for bit and marks ``front``,
+    ``candidates``, ``familiarity`` and ``decide`` once a step, which cover
+    at least 95% of the graph's device time."""
+    from chip_smoke import bench_config, exact_cfg
+
+    cfg, land, route = bench_config(4, 50)
+    cfg = exact_cfg(cfg)
+    st = make_statics(land, train_library(land, route, cfg, device=dev), route, dev)
+    states = init_state(*make_trials(route, cfg, 1024, seed=0), dev)
+    run = make_navigate_batch(cfg, "kernel", device=dev)
+    steps = cfg.agent.max_steps
+    want = run(states, st)  # warm-up, capture, one replay
+    torch.cuda.synchronize()
+    before = ops.launch_counts()
+    got = run(states, st)
+    torch.cuda.synchronize()
+    added = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    assert added["min_distance"] == steps, added
+    assert added["decide"] == steps and added["lag_fam"] == 0, added
+    _assert_equal(got, want)
+    with profiling.recording():
+        _assert_equal(run(states, st), want)  # captures the marked graph
+    with profiling.recording() as rec:
+        for _ in range(3):
+            _assert_equal(run(states, st), want)
+    assert {k: v[1] for k, v in rec.stages.items()} == dict.fromkeys(
+        ("front", "candidates", "familiarity", "decide"), 3 * steps)
+    covered = sum(ms for ms, _ in rec.stages.values()) / sum(rec.graph_ms)
+    assert 0.95 <= covered <= 1.0, rec.stages
+
+
 NCCL_MESHES = ((4, 1), (1, 4), (2, 2))
 
 
