@@ -27,15 +27,22 @@ Phases, one JSON line each:
             views -> min-distance kernel -> window pool). ``dgemm_ms`` is the
             time of the fp64 cuBLAS product ``a64 @ b64.T`` at the
             min-distance shape: what DMMA reaches there through cuBLAS, not a
-            computation of the kernel's function. The decision kernel
+            computation of the kernel's function. The min-distance kernel's
+            pooled entry (``min_distance_pooled``, the main path's scorer,
+            which forms the candidates from the pooled panorama) must equal
+            the rows entry on the gathered candidates bit for bit; it is
+            timed beside that entry (``rows_ms``), the gather and permute
+            copy (``gather_ms``) and the two together (``route_ms``), the
+            route it replaces. The decision kernel
             (``ops.decide``) must equal its plain version bit for bit at
             B = 1024 and B = 1 (``b1``) on the bench route; it replaces no
             TPU kernel, so it has no yardstick;
 4. main   — config 4 with the exact familiarity path (``spectral_cutoff=0``):
             train a 50-view library on the 512^2 blobs world, then a batched
             episode of 1024 agents with ``fam_impl="kernel"``; the launch
-            count of each of its four kernels (the decision's too) over that run
-            must be > 0;
+            count of each of its four kernels (window, render, the pooled
+            min-distance entry, the decision) over that run must be > 0,
+            and the rows entry's 0;
 5. reference — the same episode with ``fam_impl="plain"``: success rates
             within 0.025, >= 99% of agents choose the same first candidate;
 6. lag    — the fused lag familiarity (``ops.lag.make_lag_fam``) on the
@@ -311,6 +318,7 @@ from navdv_torch.metrics import episode_metrics, success_rate
 from navdv_torch.ops.decide import Route, decide, decide_constants, decide_plain
 from navdv_torch.ops.familiarity import (
     make_lib_min_kernel,
+    min_distance_pooled,
     min_distance_rows,
     min_distance_rows_plain,
 )
@@ -362,10 +370,11 @@ VIEWS = 50
 CONFIG2_BATCH = 512  # bench.py SPEC_BATCH[2]
 CONFIG2_VIEWS = 500  # bench.py SPEC_VIEWS[2]
 # the kernel path's familiarity map: the step's kernels but the decision
-MAP_KERNELS = ("window_gather", "render", "min_distance")
+# (SSD: the min-distance kernel's pooled entry forms the candidates itself)
+MAP_KERNELS = ("window_gather", "render", "min_distance_pooled")
 MAIN_KERNELS = (*MAP_KERNELS, "decide")
 RENDER_KERNELS = ("window_gather", "render")
-DISTANCE_KERNELS = ("min_distance", "lag_fam")
+DISTANCE_KERNELS = ("min_distance", "min_distance_pooled", "lag_fam")
 DMMA_KERNELS = ("min_distance", "lag_fam")  # built for the fp64 tensor cores
 LAG_POSE_STEPS = (0, 16, 32, 48)  # lag phase: poses at the start and after these steps
 ROUTE_LENGTH = 40.0
@@ -608,9 +617,64 @@ def check_kernels(cfg: SimConfig, route: np.ndarray, dev: torch.device) -> dict[
         plain_ms=metrics["ssd"]["plain_ms"],
         ncc=metrics["ncc"], dgemm_ms=dgemm_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
+    del a, b
+    results["min_distance_pooled"] = check_pooled_kernel(cfg, dev, rng)
     results["lag_fam"] = check_lag_kernel(cfg, dev, rng)
     results["decide"] = check_decide(cfg, route, dev, rng)
     return results
+
+
+def check_pooled_kernel(cfg: SimConfig, dev: torch.device, rng) -> dict:
+    """The min-distance kernel's pooled entry at the main path's shapes
+    (random pooled panoramas, the 60 scan lags, a random library): equal bit
+    for bit to the rows entry on the candidates the step gathered before
+    (``make_views_from_pooled``), within rtol 2e-4 / atol 2e-3 of float64,
+    and timed beside the rows entry alone (``rows_ms``), the gather and
+    permute copy alone (``gather_ms``) and the route it replaces, gather
+    then rows entry (``route_ms``). ``plain_ms`` times the plain version's
+    arithmetic (gather, then ``min_distance_rows_plain``) without its copy
+    of the lags to the host, which the sleep-held timer cannot hold."""
+    sensor = cfg.sensor
+    lags_np = scan_lag_sets(cfg.scan)[0]
+    n_lags, p = len(lags_np), sensor.n_pixels
+    s = torch.from_numpy(rng.uniform(size=(BATCH, sensor.n_radial, sensor.n_fine))
+                         .astype(np.float32)).to(dev)
+    lib = pack_library(torch.from_numpy(
+        rng.uniform(size=(VIEWS, sensor.n_radial, sensor.n_azimuth)).astype(np.float32)).to(dev))
+    lags = torch.from_numpy(lags_np.astype(np.int32)).to(dev)
+    views = make_views_from_pooled(sensor, lags_np, dev)
+    args = (s, lags, lib.flat, lib.sq, sensor, -2.0, True)
+    got = min_distance_pooled(*args)
+    rows = views(s).reshape(-1, p)
+    want = min_distance_rows(rows, lib.flat, lib.sq, -2.0, True)
+    c64 = rows.double()
+    want64 = (-2.0 * (c64 @ lib.flat.double().T) + (c64 * c64).sum(1, keepdim=True)
+              + lib.sq.double()[None, :]).min(dim=1).values
+    torch.cuda.synchronize()
+    require(torch.equal(got.reshape(-1), want),
+            "pooled min distance differs from the rows entry on the gathered candidates")
+    diff = (got.reshape(-1).double() - want64).abs()
+    err = float(diff.max())
+    require(bool((diff <= 2e-3 + 2e-4 * want64.abs()).all()),
+            f"pooled min distance: max abs err {err} beyond rtol 2e-4 / atol 2e-3 vs float64")
+    del c64, want64, diff
+    n_rows, nl = BATCH * n_lags, VIEWS
+    flops = 2.0 * n_rows * nl * p + 2.0 * n_rows * p  # cross term + |a|^2
+    b_ms, b_by = bound(nbytes(s, lib.flat, lags) + nl * 4 + n_rows * 4, flops)
+    return dict(
+        route="cuda", source="navdv_torch/csrc/min_distance.cu",
+        replaces="navdv_tpu/ops/familiarity_pallas.py:103",
+        max_abs_err=err, tolerance="rtol 2e-4, atol 2e-3 vs float64; rows entry bit for bit",
+        ms=time_ms(lambda: min_distance_pooled(*args)),
+        ms_in_run=time_ms_in_run(lambda: min_distance_pooled(*args)),
+        plain_ms=time_ms(lambda: min_distance_rows_plain(views(s).reshape(-1, p), lib.flat,
+                                                         lib.sq, -2.0, True)),
+        rows_ms=time_ms(lambda: min_distance_rows(rows, lib.flat, lib.sq, -2.0, True)),
+        gather_ms=time_ms(lambda: views(s)),
+        route_ms=time_ms(lambda: min_distance_rows(views(s).reshape(-1, p), lib.flat, lib.sq,
+                                                   -2.0, True)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
 
 
 def check_window(land: torch.Tensor, by_np: np.ndarray, bx_np: np.ndarray, wy: int,
@@ -843,9 +907,11 @@ def run_main_path(cfg, land, route):
     final, rec = run(states0, st)
     rate = float(success_rate(final))  # waits for the episode
     wall = time.perf_counter() - t0
-    counts = {name: ops.launch_counts()[name] for name in MAIN_KERNELS}
-    for name, n in counts.items():
-        require(n > 0, f"kernel {name} was not launched on the main path")
+    counts = ops.launch_counts()
+    for name in MAIN_KERNELS:
+        require(counts[name] > 0, f"kernel {name} was not launched on the main path")
+    require(counts["min_distance"] == 0, "the main path launched the rows entry of the "
+            "min-distance kernel: its candidates were materialised")
 
     t_max = cfg.agent.max_steps
     require(lib.views.shape == (VIEWS, cfg.sensor.n_radial, cfg.sensor.n_azimuth),
@@ -2013,8 +2079,8 @@ def run_big_landscape(cfg: SimConfig, land_np: np.ndarray, route: np.ndarray,
             f"big landscape: success {res.success_rate} below the exact path's {rate_ref} "
             f"less {ACCURACY_BAND_1}")
     require_render_only(counts, "big_landscape")
-    require(gate_counts["min_distance"] > 0, "big landscape: the exact gate did not launch "
-            "the min-distance kernel")
+    require(gate_counts["min_distance_pooled"] > 0, "big landscape: the exact gate did not "
+            "launch the min-distance kernel")
     return launches, kernels
 
 
@@ -2476,7 +2542,7 @@ def check_dryrun(n: int, s: dict, cards: int) -> dict[str, int]:
         for rank, counts in enumerate(m["launches"]):
             require(counts["window_gather"] > 0 and counts["render"] > 0,
                     f"{tag}: rank {rank} launched no window or render kernel: {counts}")
-            require(counts["min_distance"] == 0 and counts["lag_fam"] == 0,
+            require(all(counts[name] == 0 for name in DISTANCE_KERNELS),
                     f"{tag}: rank {rank} launched a distance kernel on fft: {counts}")
             require(counts["decide"] > 0, f"{tag}: rank {rank} launched no decision kernel")
             for name in launches:
@@ -2633,11 +2699,15 @@ def run_bench_phase() -> dict[str, int]:
         require(n["window_gather"] > 0 and n["render"] > 0 and n["decide"] > 0,
                 f"{what}: window, render or decision kernel not launched: {n}")
         require(n["lag_fam"] == 0, f"{what}: the lag kernel launched: {n}")
-        if ln["metric"] in ("pallas_parity_gate", "big_landscape_dma"):
+        # the parity gate scores gathered candidates (rows entry); every exact
+        # recall gate runs the kernel path's SSD step (pooled entry)
+        if ln["metric"] == "pallas_parity_gate":
             require(n["min_distance"] > 0, f"{what}: the min-distance kernel not launched")
+        if ln["metric"] == "big_landscape_dma":
+            require(n["min_distance_pooled"] > 0, f"{what}: the min-distance kernel not launched")
         for name in launches:
             launches[name] += n[name]
-    require(sum(ln["launches"]["min_distance"] for ln in all_lines[:7]) > 0,
+    require(sum(ln["launches"]["min_distance_pooled"] for ln in all_lines[:7]) > 0,
             "bench: no exact recall gate launched the min-distance kernel")
     emit({"phase": "bench", "lines": len(all_lines) + len(big),
           "gated_ok": sum(ln.get("ok") is True for ln in all_lines + big),

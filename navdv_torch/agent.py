@@ -63,7 +63,7 @@ from navdv_torch.ops.decide import (  # noqa: F401 (the status codes are agent.S
     decide_constants,
 )
 from navdv_torch.ops.decide import decide as ops_decide
-from navdv_torch.ops.familiarity import make_lib_min_kernel
+from navdv_torch.ops.familiarity import make_lib_min_kernel, make_lib_min_pooled
 from navdv_torch.sensor import (
     make_lag_stats,
     make_pooled_panorama,
@@ -416,10 +416,14 @@ def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None, lib
     library minimum M[B, L] at the deduplicated scan lags -> RIDF min-pool
     via a static window gather -> argmin/kinematics.
 
-    ``"kernel"``/``"plain"`` extract the candidate views first; when
-    (L x P) per agent exceeds FAM_CHUNK_ELEMS, lags are extracted and scored
-    in chunks so only [B, chunk, P] is ever materialized. They have no
-    prepare stage (``step.lib_prepare`` is None) and ignore ``aux``.
+    ``"kernel"`` with the SSD metric scores the pooled panorama in one
+    min-distance launch that forms the candidate views inside the kernel
+    (:func:`navdv_torch.ops.familiarity.min_distance_pooled`).
+    ``"kernel"`` with NCC and ``"plain"`` extract the candidate views first;
+    when (L x P) per agent exceeds FAM_CHUNK_ELEMS, lags are extracted and
+    scored in chunks so only [B, chunk, P] is ever materialized. The kernel
+    and plain paths have no prepare stage (``step.lib_prepare`` is None)
+    and ignore ``aux``.
     ``"infomax"`` extracts them too and scores them against the network
     ``step.lib_prepare(st)`` trains, which it needs as ``aux`` (raises
     without it). ``"roll"``/``"fft"`` score the pooled panorama directly;
@@ -443,11 +447,12 @@ def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None, lib
     and the sector renderer's marks ``front`` (render, window gather,
     pooled panorama, lag statistics), ``familiarity``, ``lib_pmin`` (with a
     lib axis) and ``decide`` (the RIDF min-pool and :func:`_make_decide`'s
-    decision). ``"kernel"``, ``"plain"`` and ``"infomax"`` mark the
-    candidate gathers as ``candidates`` between ``front`` and
+    decision). ``"kernel"`` with NCC, ``"plain"`` and ``"infomax"`` mark
+    the candidate gathers as ``candidates`` between ``front`` and
     ``familiarity`` when their lags form one chunk; with several, each
     chunk's gather and score alternate inside ``familiarity``, since a
-    stage is marked once a step. ``"conv"`` and the sector renderer's path
+    stage is marked once a step. ``"kernel"`` with SSD gathers nothing and
+    marks no ``candidates``. ``"conv"`` and the sector renderer's path
     mark ``familiarity`` and ``decide``.
     """
     dev = resolve_device(device)
@@ -491,9 +496,12 @@ def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None, lib
                 lag_sum, lag_sq = lag_stats(s.double())  # [B, L] each
         return s, lag_sum, lag_sq
 
-    if fam_impl in ("fft", "roll"):
-        make = make_lib_min_fft if fam_impl == "fft" else make_lib_min_roll
-        lib_min_s = make(cfg.sensor, cfg.scan, lags, dev)
+    if fam_impl in ("fft", "roll") or (fam_impl == "kernel" and cfg.scan.metric == "ssd"):
+        if fam_impl == "kernel":  # the candidates are formed inside the kernel
+            lib_min_s = make_lib_min_pooled(cfg.sensor, lags, dev)
+        else:
+            make = make_lib_min_fft if fam_impl == "fft" else make_lib_min_roll
+            lib_min_s = make(cfg.sensor, cfg.scan, lags, dev)
 
         def lag_min(states: AgentState, st: EpisodeStatics, aux) -> torch.Tensor:
             s, lag_sum, lag_sq = front(states, st)
@@ -502,7 +510,8 @@ def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None, lib
             return lib_pmin(m, lib_axis)  # [B, L]
 
         step = _step_from_lag_min(lag_min, window_idx_dev, decide)
-        step.lib_prepare = lambda st: lib_min_s.prepare(st.lib)
+        prepare = getattr(lib_min_s, "prepare", None)  # the pooled kernel needs none
+        step.lib_prepare = None if prepare is None else (lambda st: prepare(st.lib))
         return step
 
     lib_min = _make_lib_min(cfg, fam_impl, dev)

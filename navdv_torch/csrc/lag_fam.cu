@@ -83,6 +83,8 @@ struct PooledRows {
     int p, a;
     int lag[ROWS_PER_THREAD];
 
+    __device__ __forceinline__ float value(float x) const { return x; }  // pooled and scaled
+
     __device__ __forceinline__ void operator()(float (*dst)[LDA], int k0) const {
         const int k = threadIdx.x % TILE_K;
         const int r0 = threadIdx.x / TILE_K;

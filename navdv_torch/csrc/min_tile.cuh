@@ -4,17 +4,24 @@
 //
 //   mn[row] = min_v ( alpha * <row, b_v> + beta_row + gamma_v )
 //
-// with beta_row = |row|^2 when with_rowsq (SSD), else 1. The two kernels
-// differ only in where a row's pixels come from, so the rows arrive through
-// a stager: stage_rows(dst, k0) fills dst[r][0, TILE_K) with pixels
+// with beta_row = |row|^2 when with_rowsq (SSD), else 1. The kernels differ
+// only in where a row's pixels come from, so the rows arrive through a
+// stager: stage_rows(dst, k0) fills dst[r][0, TILE_K) with pixels
 // k0 .. k0 + TILE_K - 1 of the block's row r as fp32, zeros past p and past
 // the last row. It may issue cp.async copies (the tile commits and waits on
-// them) or store directly.
+// them) or store directly. The tile reads a staged pixel x as
+// stage_rows.value(x), where a stager whose cp.async copies bytes applies
+// what the copy could not (min_distance.cu's PooledRows: the fp32 1/u).
+// The stagers: GlobalRows (min_distance.cu) streams materialised rows,
+// PooledRows (min_distance.cu) gathers the step's candidates from the
+// pooled panorama in device memory, PooledRows (lag_fam.cu) from a
+// panorama row the block pooled into shared memory.
 //
 // Bound on the H100: operations. At config 4 (rows = 1024 x 60, P = 1152,
 // Nl = 50) the cross term is 7.08 GFLOP, 0.106 ms at the 67 TFLOP/s of the
-// fp64 tensor cores, against 0.085 ms to read the 283 MB of rows once at
-// 3.35 TB/s. The design aims at the tensor cores and hides the row stream:
+// fp64 tensor cores; the main path's rows come from the 23.6 MB pooled
+// panorama (materialised rows would be 283 MB, 0.085 ms at 3.35 TB/s).
+// The design aims at the tensor cores and hides the row traffic:
 //
 // - The cross term runs on the fp64 tensor cores (DMMA), through warp-level
 //   mma.sync m16n8k8 f64 (wgmma has no fp64 type). Each warp owns M_TILES
@@ -44,7 +51,7 @@
 // product is exact in fp64; only the summation order differs from a plain
 // fp64 matrix product. The SSD decomposition cancels (view norms ~300, gaps
 // between the best headings ~1e-5 at BASELINE config 4), so fp32 sums would
-// let rounding pick the heading (ROADMAP C.1). Both kernels run this one
+// let rounding pick the heading (ROADMAP C.1). Every stager runs this one
 // routine, so they sum in one order and agree bit for bit on equal rows.
 //
 // ops/lag.py reads the integer constants below by name to size the lag
@@ -198,10 +205,10 @@ __device__ __forceinline__ void tile_min(TileSmem<tile_rows<M_TILES>>& sm,
                     const float* ar = &sm.a[s][r0 + m * 16][kk + 2 * t];
                     const float2 x = *reinterpret_cast<const float2*>(ar);
                     const float2 y = *reinterpret_cast<const float2*>(ar + 8 * LDA);
-                    af[m][0] = x.x;
-                    af[m][1] = y.x;
-                    af[m][2] = x.y;
-                    af[m][3] = y.y;
+                    af[m][0] = stage_rows.value(x.x);
+                    af[m][1] = stage_rows.value(y.x);
+                    af[m][2] = stage_rows.value(x.y);
+                    af[m][3] = stage_rows.value(y.y);
                     if (first && with_rowsq) {
                         rsq[m][0] = fma(af[m][0], af[m][0], rsq[m][0]);
                         rsq[m][1] = fma(af[m][1], af[m][1], rsq[m][1]);

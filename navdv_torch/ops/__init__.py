@@ -14,6 +14,7 @@ _WRAPPERS = {
     "window_gather": window.window_gather,
     "render": render.render_windows,
     "min_distance": familiarity.min_distance_rows,
+    "min_distance_pooled": familiarity.min_distance_pooled,
     "lag_fam": lag.lag_lib_min,
     "decide": decide.decide,
 }

@@ -13,11 +13,16 @@ import torch
 from navdv_torch import ops
 from navdv_torch.config import ScanConfig, SensorConfig
 from navdv_torch.familiarity import LibraryPack, pack_library, zscore
-from navdv_torch.ops.familiarity import min_distance_rows, min_distance_rows_plain
+from navdv_torch.ops.familiarity import (
+    min_distance_pooled,
+    min_distance_pooled_plain,
+    min_distance_rows,
+    min_distance_rows_plain,
+)
 from navdv_torch.ops.lag import lag_lib_min, lag_lib_min_plain, make_lag_fam
 from navdv_torch.ops.render import render_windows, render_windows_plain
 from navdv_torch.ops.window import window_gather, window_gather_plain
-from navdv_torch.sensor import scan_lag_sets
+from navdv_torch.sensor import make_views_from_pooled, scan_lag_sets
 
 pytestmark = pytest.mark.cuda
 
@@ -170,6 +175,77 @@ def test_lag_kernel_equals_min_distance_kernel(dev):
     md = min_distance_rows(cand, lib.flat, lib.sq, -2.0, True).clamp_min(0.0)
     torch.cuda.synchronize()
     assert torch.equal(lag.reshape(-1), md)
+
+
+CONFIG4_SENSOR = SensorConfig(n_radial=16, n_azimuth=72, az_upsample=5)
+CONFIG4_LAGS = scan_lag_sets(ScanConfig(n_headings=60))[0]
+WRAPPING_LAGS = np.array([-40, -36, -7, -1, 0, 3, 11, 35, 36, 70, 71])
+R3W7_U1 = SensorConfig(n_radial=3, n_azimuth=7, az_upsample=1)
+R3W7_U5 = SensorConfig(n_radial=3, n_azimuth=7, az_upsample=5)
+
+
+@pytest.mark.parametrize("sensor,lags,b,nl,layout,with_rowsq", [
+    (CONFIG4_SENSOR, CONFIG4_LAGS, 37, 50, "contiguous", True),
+    (CONFIG4_SENSOR, CONFIG4_LAGS, 37, 57, "contiguous", True),
+    (CONFIG4_SENSOR, CONFIG4_LAGS, 37, 120, "offset", True),
+    (CONFIG4_SENSOR, CONFIG4_LAGS[::7], 9, 50, "strided", True),
+    (CONFIG4_SENSOR, CONFIG4_LAGS, 3, 50, "contiguous", False),
+    (R3W7_U1, WRAPPING_LAGS, 37, 50, "contiguous", True),
+    (R3W7_U1, WRAPPING_LAGS[::2], 130, 57, "offset", True),
+    (R3W7_U5, WRAPPING_LAGS, 37, 120, "strided", True),
+    (R3W7_U5, np.arange(-200, 200), 1, 9, "contiguous", True),
+], ids=["config4", "config4_nl57", "config4_nl120_offset", "config4_subset_strided",
+        "config4_no_rowsq", "r3w7_u1_wrap", "r3w7_u1_offset", "r3w7_u5_strided",
+        "r3w7_u5_400_lags"])
+def test_min_distance_pooled_on_card(dev, sensor, lags, b, nl, layout, with_rowsq):
+    """The pooled entry against the rows entry on the candidates that
+    ``make_views_from_pooled`` gathers, bit for bit: config 4's shape at B
+    = 37 (B L not a multiple of the 128-row tile), one and several library
+    tiles, u = 1 and 5, P = 21 (P % 4 != 0), lags that wrap past A in both
+    directions, a subset of lags, S contiguous, one float off 16-byte
+    alignment, or strided; its plain version within rounding."""
+    rng = np.random.default_rng(b + nl + len(lags))
+    shape = (b, sensor.n_radial, sensor.n_fine)
+    if layout == "contiguous":
+        s = torch.from_numpy(rng.uniform(size=shape).astype(np.float32)).to(dev)
+    elif layout == "offset":
+        buf = torch.from_numpy(rng.uniform(size=int(np.prod(shape)) + 1).astype(np.float32))
+        s = buf.to(dev)[1:].view(shape)
+    else:
+        wide = rng.uniform(size=(*shape[:2], 2 * shape[2])).astype(np.float32)
+        s = torch.from_numpy(wide).to(dev)[:, :, 1::2]
+    views = rng.uniform(size=(nl, sensor.n_radial, sensor.n_azimuth)).astype(np.float32)
+    lib = pack_library(torch.from_numpy(views).to(dev))
+    lags_t = torch.from_numpy(lags.astype(np.int32)).to(dev)
+    alpha = -2.0 if with_rowsq else -1.0 / sensor.n_pixels
+    before = min_distance_pooled.launches
+    got = min_distance_pooled(s, lags_t, lib.flat, lib.sq, sensor, alpha, with_rowsq)
+    rows = make_views_from_pooled(sensor, lags, dev)(s).reshape(-1, sensor.n_pixels)
+    want = min_distance_rows(rows, lib.flat, lib.sq, alpha, with_rowsq).reshape(b, len(lags))
+    plain = min_distance_pooled_plain(s, lags_t, lib.flat, lib.sq, sensor, alpha, with_rowsq)
+    torch.cuda.synchronize()
+    assert min_distance_pooled.launches == before + 1
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got, plain, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("bad", ["lags_on_cpu", "lib_on_cpu", "s_dtype", "s_shape"])
+def test_min_distance_pooled_refuses_bad_inputs_on_card(dev, bad):
+    s = torch.zeros(4, 3, 35, device=dev)
+    lags = torch.arange(-2, 3, dtype=torch.int32, device=dev)
+    b, gamma = torch.zeros(3, 21, device=dev), torch.zeros(3, device=dev)
+    if bad == "lags_on_cpu":
+        lags = lags.cpu()
+    elif bad == "lib_on_cpu":
+        b = b.cpu()
+    elif bad == "s_dtype":
+        s = s.double()
+    else:
+        s = torch.zeros(4, 3, 21, device=dev)
+    before = min_distance_pooled.launches
+    with pytest.raises(ValueError, match="min_distance_pooled"):
+        min_distance_pooled(s, lags, b, gamma, R3W7_U5, -2.0, True)
+    assert min_distance_pooled.launches == before
 
 
 def test_wrappers_count_launches_and_refuse_mixed_devices(dev):

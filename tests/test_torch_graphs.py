@@ -374,11 +374,11 @@ def test_stage_marks_on_card(dev, monkeypatch, config, fam_impl, batch, views):
 @pytest.mark.cuda
 def test_kernel_path_stage_marks_on_card(dev):
     """BASELINE config 4 on ``kernel`` at the benchmark cell's shapes (1024
-    agents, 50 views): each replay of the captured episode adds one
-    min-distance launch a step; the graph captured inside a recording gives
-    the unmarked graph's episode bit for bit and marks ``front``,
-    ``candidates``, ``familiarity`` and ``decide`` once a step, which cover
-    at least 95% of the graph's device time."""
+    agents, 50 views): each replay of the captured episode adds one pooled
+    min-distance launch a step and no launch of the rows entry; the graph
+    captured inside a recording gives the unmarked graph's episode bit for
+    bit and marks ``front``, ``familiarity`` and ``decide`` once a step,
+    which cover at least 95% of the graph's device time."""
     from chip_smoke import bench_config, exact_cfg
 
     cfg, land, route = bench_config(4, 50)
@@ -393,7 +393,7 @@ def test_kernel_path_stage_marks_on_card(dev):
     got = run(states, st)
     torch.cuda.synchronize()
     added = {k: v - before[k] for k, v in ops.launch_counts().items()}
-    assert added["min_distance"] == steps, added
+    assert added["min_distance_pooled"] == steps and added["min_distance"] == 0, added
     assert added["decide"] == steps and added["lag_fam"] == 0, added
     _assert_equal(got, want)
     with profiling.recording():
@@ -402,9 +402,76 @@ def test_kernel_path_stage_marks_on_card(dev):
         for _ in range(3):
             _assert_equal(run(states, st), want)
     assert {k: v[1] for k, v in rec.stages.items()} == dict.fromkeys(
-        ("front", "candidates", "familiarity", "decide"), 3 * steps)
+        ("front", "familiarity", "decide"), 3 * steps)
     covered = sum(ms for ms, _ in rec.stages.values()) / sum(rec.graph_ms)
     assert 0.95 <= covered <= 1.0, rec.stages
+
+
+@pytest.mark.cuda
+def test_kernel_ssd_step_equals_the_gathered_candidates_step_on_card(dev):
+    """BASELINE config 4 on ``kernel`` at 1024 agents: the step that forms
+    its candidates inside the min-distance kernel gives, step by step over
+    an episode and bit for bit, the familiarity, states and records of the
+    same step scoring gathered candidates through the rows entry."""
+    from chip_smoke import bench_config, exact_cfg
+    from navdv_torch.ops.familiarity import make_lib_min_kernel
+    from navdv_torch.sensor import (
+        make_pooled_panorama,
+        make_render_batch,
+        make_views_from_pooled,
+        scan_lag_sets,
+    )
+
+    cfg, land, route = bench_config(4, 50)
+    cfg = exact_cfg(cfg)
+    st = make_statics(land, train_library(land, route, cfg, device=dev), route, dev)
+    states = init_state(*make_trials(route, cfg, 1024, seed=2), dev)
+    lags, window_idx = scan_lag_sets(cfg.scan)
+    window_idx = torch.as_tensor(window_idx.astype(np.int64), device=dev)
+    render_b = make_render_batch(cfg.sensor, dev)
+    pooled = make_pooled_panorama(cfg.sensor, dev)
+    views = make_views_from_pooled(cfg.sensor, lags, dev)
+    lib_min = make_lib_min_kernel(cfg.sensor, cfg.scan)
+
+    def gathered_fam(s, st, aux=None):
+        m = lib_min(views(pooled(render_b(st.landscape, s.xy, s.theta))), st.lib)
+        return torch.min(m[:, window_idx], dim=2).values
+
+    step = agent.make_step_batched(cfg, "kernel", device=dev)
+    want_step = agent._step_from_fam(gathered_fam, agent._make_decide(cfg, dev))
+    ops.reset_launch_counts()
+    got = want = states
+    for _ in range(cfg.agent.max_steps):
+        assert torch.equal(step.fam(got, st), gathered_fam(got, st))
+        got, got_rec = step(got, st)
+        want, want_rec = want_step(want, st)
+        _assert_equal((got, got_rec), (want, want_rec))
+    counts = ops.launch_counts()
+    assert counts["min_distance_pooled"] == counts["min_distance"] == 2 * cfg.agent.max_steps
+
+
+@pytest.mark.cuda
+def test_kernel_path_episode_builds_no_candidate_tensor(dev):
+    """BASELINE config 4 on ``kernel`` at 1024 agents: capturing and
+    replaying the episode allocates under 200 MB at its peak, below one
+    f32[1024, 60, 1152] candidate tensor (283 MB), and gives the eager
+    episode bit for bit."""
+    from chip_smoke import bench_config, exact_cfg
+
+    cfg, land, route = bench_config(4, 50)
+    cfg = exact_cfg(cfg)
+    st = make_statics(land, train_library(land, route, cfg, device=dev), route, dev)
+    states = init_state(*make_trials(route, cfg, 1024, seed=1), dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    run = make_navigate_batch(cfg, "kernel", device=dev)
+    got = run(states, st)  # warm-up, capture, one replay
+    got = run(states, st)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    assert peak < 200e6, peak
+    _assert_equal(got, make_navigate_batch_fn(cfg, "kernel", device=dev)(states, st))
 
 
 NCCL_MESHES = ((4, 1), (1, 4), (2, 2))

@@ -157,7 +157,8 @@ def test_stage_marks_are_noops_on_the_cpu(sim, monkeypatch):
 @pytest.mark.parametrize("fam_impl,stages", [
     ("fft", ["front", "familiarity", "decide"]),
     ("roll", ["front", "familiarity", "decide"]),
-    ("kernel", ["front", "candidates", "familiarity", "decide"]),
+    ("kernel", ["front", "familiarity", "decide"]),
+    ("plain", ["front", "candidates", "familiarity", "decide"]),
     ("conv", ["familiarity", "decide"]),
 ])
 def test_step_marks_its_stages_in_order(small_cfg, small_world, monkeypatch, fam_impl, stages):

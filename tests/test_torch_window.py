@@ -10,7 +10,7 @@ import torch
 
 from navdv_torch import ops
 from navdv_torch.config import SensorConfig
-from navdv_torch.ops.familiarity import min_distance_rows
+from navdv_torch.ops.familiarity import min_distance_pooled, min_distance_rows
 from navdv_torch.ops.lag import lag_lib_min
 from navdv_torch.ops.window import window_gather
 from navdv_tpu.ops.window_pallas import make_window_gather_pallas
@@ -52,11 +52,17 @@ def test_wrappers_take_plain_path_on_cpu_only(small_world):
     sensor = SensorConfig(n_radial=2, n_azimuth=6, az_upsample=2)
     lag_lib_min(a.reshape(4, 2, 12), a[:3], torch.zeros(3), sensor,
                 torch.arange(-2, 3, dtype=torch.int32))
+    min_distance_pooled(a.reshape(4, 2, 12), torch.arange(-2, 3, dtype=torch.int32), a[:3],
+                        torch.zeros(3), sensor, -2.0, True)
     assert ops.launch_counts() == {"window_gather": 0, "render": 0, "min_distance": 0,
-                                   "lag_fam": 0, "decide": 0}
+                                   "min_distance_pooled": 0, "lag_fam": 0, "decide": 0}
     meta = torch.empty(8, 12, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         min_distance_rows(meta, meta[:3], torch.empty(3, device="meta"), -2.0, True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        min_distance_pooled(meta.reshape(4, 2, 12), torch.zeros(5, dtype=torch.int32,
+                            device="meta"), meta[:3], torch.empty(3, device="meta"), sensor,
+                            -2.0, True)
 
 
 def test_window_gather_refuses_landscapes_past_32_bit_offsets():
