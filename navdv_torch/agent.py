@@ -50,7 +50,7 @@ from navdv_torch.capture import Captured, copy_out, host_collectives
 from navdv_torch.config import SimConfig, choose_fam_impl
 from navdv_torch.device import as_tensor, resolve_device
 from navdv_torch.familiarity import NCC_EPS, PAD_PENALTY, LibraryPack
-from navdv_torch.familiarity_conv import make_fam_conv
+from navdv_torch.familiarity_conv import make_lib_min_conv
 from navdv_torch.familiarity_fft import make_lib_min_fft
 from navdv_torch.familiarity_infomax import make_lib_min_infomax
 from navdv_torch.familiarity_roll import make_lib_min_roll
@@ -311,49 +311,39 @@ def _warn_unused_knobs(cfg: SimConfig, fam_impl: str) -> None:
                       stacklevel=3)
 
 
-def _step_from_fam(fam_of, decide):
-    """Assemble a batched step from its familiarity stage, marked as the
-    stages ``familiarity`` and ``decide``. ``step.fam`` exposes the
-    pre-argmin familiarity ``fam_of(states, st, aux=None) -> [B, Nh]``, so a
-    probe (another familiarity route, an analysis) reads the exact step
-    pipeline."""
-
-    def step(states: AgentState, st: EpisodeStatics, aux=None):
-        with stage("familiarity"):
-            fam = fam_of(states, st, aux)
-        with stage("decide"):
-            return decide(states, fam, st)
-
-    step.fam = fam_of
-    return step
-
-
 def _step_from_lag_min(lag_min, window_idx: torch.Tensor, decide):
     """Assemble a batched step from its per-lag library minimum
     ``lag_min(states, st, aux) -> M [B, L]``, which marks its own stages: the
-    RIDF min-pool over ``window_idx`` and the decision form the stage
-    ``decide``. ``step.fam`` is the pre-argmin familiarity, as in
-    :func:`_step_from_fam`."""
+    RIDF min-pool of M over each heading's tolerance window ``window_idx``
+    and the decision form the stage ``decide``. ``step.fam`` exposes the
+    pre-argmin familiarity ``fam_of(states, st, aux=None) -> [B, Nh]``, the
+    same pool over the same minima, so a probe (another familiarity route,
+    an analysis) reads the exact step pipeline; ``step.fam.fused`` says
+    whether the sector renderer's fused front end runs (False off it)."""
+
+    def pool(m: torch.Tensor) -> torch.Tensor:
+        return torch.min(m[:, window_idx], dim=2).values  # [B, Nh]
 
     def fam_of(states: AgentState, st: EpisodeStatics, aux=None) -> torch.Tensor:
-        return torch.min(lag_min(states, st, aux)[:, window_idx], dim=2).values
+        return pool(lag_min(states, st, aux))
 
     def step(states: AgentState, st: EpisodeStatics, aux=None):
         m = lag_min(states, st, aux)
         with stage("decide"):
-            fam = torch.min(m[:, window_idx], dim=2).values  # [B, Nh]
-            return decide(states, fam, st)
+            return decide(states, pool(m), st)
 
+    fam_of.fused = getattr(lag_min, "fused", False)
     step.fam = fam_of
     return step
 
 
-def _make_sector_fam(cfg: SimConfig, lib_min, lags: np.ndarray, window_idx: torch.Tensor, dev,
-                     lib_axis=None):
-    """The spectral familiarity through the sector renderer (the JAX
-    package's two sector branches): ``(fam_of(states, st, aux=None) ->
-    [B, Nh], prepare(st) -> aux)``, aux = (library spectra, padded
-    landscape), both built once per statics.
+def _make_sector_lag_min(cfg: SimConfig, lib_min, lags: np.ndarray, dev, lib_axis=None):
+    """The spectral per-lag minimum through the sector renderer (the JAX
+    package's two sector branches): ``(lag_min(states, st, aux=None) -> M
+    [B, L], prepare(st) -> aux)``, aux = (library spectra, padded
+    landscape), both built once per statics (per call when aux is None).
+    Render, score and :func:`lib_pmin` form the stage ``familiarity``;
+    ``lag_min.fused`` says which front end runs.
 
     The panorama comes back in the phi frame with its roll k, which the
     spectra absorb (``roll_k``). With u == 1 and
@@ -374,7 +364,7 @@ def _make_sector_fam(cfg: SimConfig, lib_min, lags: np.ndarray, window_idx: torc
         a_fine = cfg.sensor.n_fine
         fc = lib_min.forward_mats.shape[1] // 2
 
-        def lag_min(land_pad, states, lib, lib_aux):
+        def render_min(land_pad, states, lib, lib_aux):
             spec, k, rowsum, rowsq = render.padded(land_pad, states.xy, states.theta)
             b = k.shape[0]
             lag_sum = rowsum.sum(dim=1)[:, None].expand(b, n_lags)
@@ -388,7 +378,7 @@ def _make_sector_fam(cfg: SimConfig, lib_min, lags: np.ndarray, window_idx: torc
         stats = (make_lag_stats(cfg.sensor, lags, dev, dynamic_roll=True)
                  if cfg.scan.metric == "ncc" else None)
 
-        def lag_min(land_pad, states, lib, lib_aux):
+        def render_min(land_pad, states, lib, lib_aux):
             pano, k = render.padded(land_pad, states.xy, states.theta)
             s = pooled(pano)
             lag_sum = lag_sq = None
@@ -399,13 +389,98 @@ def _make_sector_fam(cfg: SimConfig, lib_min, lags: np.ndarray, window_idx: torc
     def prepare(st: EpisodeStatics):
         return lib_min.prepare(st.lib), render.pad(st.landscape)
 
-    def fam_of(states: AgentState, st: EpisodeStatics, aux=None) -> torch.Tensor:
-        lib_aux, land_pad = prepare(st) if aux is None else aux
-        m = lib_pmin(lag_min(land_pad, states, st.lib, lib_aux), lib_axis)  # [B, L]
-        return torch.min(m[:, window_idx], dim=2).values  # [B, Nh]
+    def lag_min(states: AgentState, st: EpisodeStatics, aux=None) -> torch.Tensor:
+        with stage("familiarity"):
+            lib_aux, land_pad = prepare(st) if aux is None else aux
+            return lib_pmin(render_min(land_pad, states, st.lib, lib_aux), lib_axis)  # [B, L]
 
-    fam_of.fused = fused  # which front end the step runs, for probes
-    return fam_of, prepare
+    lag_min.fused = fused
+    return lag_min, prepare
+
+
+def _familiarity_stage(score):
+    """``score`` marked as the stage ``familiarity``, its ``prepare`` kept."""
+
+    def marked(s, lib, lag_sum, lag_sq, aux):
+        with stage("familiarity"):
+            return score(s, lib, lag_sum, lag_sq, aux)
+
+    marked.prepare = getattr(score, "prepare", None)
+    return marked
+
+
+def _candidate_score(cfg: SimConfig, lib_min, lags: np.ndarray, dev):
+    """A candidate scorer ``lib_min(cand f32[B, L, P], lib, lag_sum, lag_sq,
+    aux)`` (:func:`_make_lib_min`) as a scorer of the pooled panorama: the
+    candidate views are gathered from ``s`` (``sensor.make_views_from_pooled``)
+    and scored, in chunks of lags once (L x P) per agent exceeds
+    FAM_CHUNK_ELEMS, so only [B, chunk, P] is ever materialized. With one
+    chunk the gather is marked as the stage ``candidates`` before
+    ``familiarity``; with several, each chunk's gather and score alternate
+    inside ``familiarity``, since a stage is marked once a step."""
+    p, n_lags = cfg.sensor.n_pixels, len(lags)
+    chunk = max(1, FAM_CHUNK_ELEMS // p)
+    bounds = ([(0, n_lags)] if n_lags * p <= FAM_CHUNK_ELEMS
+              else [(i, min(i + chunk, n_lags)) for i in range(0, n_lags, chunk)])
+    views = [(lo, hi, make_views_from_pooled(cfg.sensor, lags[lo:hi], dev)) for lo, hi in bounds]
+
+    def part(cand, lo, hi, lib, lag_sum, lag_sq, aux):
+        return lib_min(cand, lib, None if lag_sum is None else lag_sum[:, lo:hi],
+                       None if lag_sq is None else lag_sq[:, lo:hi], aux)
+
+    if len(views) == 1:
+        (lo, hi, gather), = views
+
+        def score(s, lib, lag_sum, lag_sq, aux):
+            with stage("candidates"):
+                cand = gather(s)  # [B, L, P]
+            with stage("familiarity"):
+                return part(cand, lo, hi, lib, lag_sum, lag_sq, aux)
+    else:
+        def score(s, lib, lag_sum, lag_sq, aux):
+            with stage("familiarity"):
+                return torch.cat([part(v(s), lo, hi, lib, lag_sum, lag_sq, aux)
+                                  for lo, hi, v in views], dim=1)  # [B, L]
+
+    score.prepare = getattr(lib_min, "prepare", None)
+    return score
+
+
+def _make_full_lag_min(cfg: SimConfig, fam_impl: str, lags: np.ndarray, dev, lib_axis=None):
+    """The per-lag minimum of every path that renders "full": ``(lag_min(
+    states, st, aux) -> M [B, L], prepare(st) -> aux, or None)``. The front
+    (render, pooled panorama s, and the lag statistics where the path reads
+    them) is the stage ``front``; the path's scorer ``score(s f32[B, R, A],
+    lib, lag_sum f64[B, L], lag_sq f64[B, L], aux) -> M f32[B, L]`` marks
+    ``familiarity`` (the candidate paths ``candidates`` too); then
+    :func:`lib_pmin` combines the library shards."""
+    metric = cfg.scan.metric
+    if fam_impl in ("fft", "roll"):
+        make = make_lib_min_fft if fam_impl == "fft" else make_lib_min_roll
+        score = _familiarity_stage(make(cfg.sensor, cfg.scan, lags, dev))
+    elif fam_impl == "conv":
+        score = _familiarity_stage(make_lib_min_conv(cfg.sensor, cfg.scan, dev))
+    elif fam_impl == "kernel" and metric == "ssd":  # candidates formed inside the kernel
+        score = _familiarity_stage(make_lib_min_pooled(cfg.sensor, lags, dev))
+    else:  # "kernel" with NCC, "plain", "infomax": extract, then score
+        score = _candidate_score(cfg, _make_lib_min(cfg, fam_impl, dev), lags, dev)
+    render_b = make_render_batch(cfg.sensor, dev)
+    pooled = make_pooled_panorama(cfg.sensor, dev)
+    # the lag statistics: NCC's mean and spread on every path but the
+    # kernel's (which sums its own), both metrics' on infomax
+    needs_stats = fam_impl == "infomax" or (metric == "ncc" and fam_impl != "kernel")
+    lag_stats = make_lag_stats(cfg.sensor, lags, dev) if needs_stats else None
+
+    def lag_min(states: AgentState, st: EpisodeStatics, aux) -> torch.Tensor:
+        with stage("front"):
+            s = pooled(render_b(st.landscape, states.xy, states.theta))  # [B, R, A]
+            lag_sum = lag_sq = None
+            if lag_stats is not None:
+                lag_sum, lag_sq = lag_stats(s.double())  # [B, L] each
+        return lib_pmin(score(s, st.lib, lag_sum, lag_sq, aux), lib_axis)  # [B, L]
+
+    prepare = score.prepare  # fft, roll: library constants; infomax: training
+    return lag_min, None if prepare is None else (lambda st: prepare(st.lib))
 
 
 def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None, lib_axis=None):
@@ -416,44 +491,38 @@ def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None, lib
     library minimum M[B, L] at the deduplicated scan lags -> RIDF min-pool
     via a static window gather -> argmin/kinematics.
 
-    ``"kernel"`` with the SSD metric scores the pooled panorama in one
-    min-distance launch that forms the candidate views inside the kernel
-    (:func:`navdv_torch.ops.familiarity.min_distance_pooled`).
-    ``"kernel"`` with NCC and ``"plain"`` extract the candidate views first;
-    when (L x P) per agent exceeds FAM_CHUNK_ELEMS, lags are extracted and
-    scored in chunks so only [B, chunk, P] is ever materialized. The kernel
-    and plain paths have no prepare stage (``step.lib_prepare`` is None)
-    and ignore ``aux``.
-    ``"infomax"`` extracts them too and scores them against the network
-    ``step.lib_prepare(st)`` trains, which it needs as ``aux`` (raises
-    without it). ``"roll"``/``"fft"`` score the pooled panorama directly;
-    their per-library constants (pre-rolled library, library spectra) come
-    from ``step.lib_prepare(st)``, passed as ``aux`` (built per call when
-    None). ``"conv"`` scores the raw panorama by one convolution and has no
-    prepare stage. With ``render_mode="sector"``, ``"fft"`` renders through
-    the sector renderer (:func:`_make_sector_fam`), its aux also carries the padded
+    Every path scores the pooled panorama by one contract, ``score(s f32[B,
+    R, A], lib, lag_sum, lag_sq, aux) -> M f32[B, L]``
+    (:func:`_make_full_lag_min`): ``"fft"``, ``"roll"`` and ``"conv"``
+    directly; ``"kernel"`` with the SSD metric in one min-distance launch
+    that forms the candidate views inside the kernel
+    (:func:`navdv_torch.ops.familiarity.min_distance_pooled`); ``"kernel"``
+    with NCC, ``"plain"`` and ``"infomax"`` extract the candidate views
+    first (:func:`_candidate_score`). Per-library constants (pre-rolled
+    library, library spectra, the infomax network) come from
+    ``step.lib_prepare(st)``, passed as ``aux``; they are built per call
+    when None, except infomax's training, which raises without it. The
+    kernel, plain and conv paths have no prepare stage
+    (``step.lib_prepare`` is None) and ignore ``aux``. With
+    ``render_mode="sector"``, ``"fft"`` renders through the sector renderer
+    (:func:`_make_sector_lag_min`), its aux also carries the padded
     landscape, and ``step.fam.fused`` says whether it took the fused front
-    end. ``step.fam`` exposes the pre-argmin familiarity
-    ``fam_of(states, st, aux=None) -> [B, Nh]``.
+    end. ``step.fam`` exposes the pre-argmin familiarity ``fam_of(states,
+    st, aux=None) -> [B, Nh]``.
 
     ``lib_axis`` is a process group over which the library is sharded:
-    ``st.lib`` is this rank's shard, and the per-lag minima (conv: the
-    pooled familiarity, since the minimum commutes with the pooling) are
-    combined by :func:`lib_pmin` before the RIDF pool, at the JAX package's
-    four points.
+    ``st.lib`` is this rank's shard, and the per-lag minima are combined by
+    :func:`lib_pmin` before the RIDF pool, at the JAX package's four points.
 
     The step marks its stages on the device
-    (:func:`navdv_torch.utils.profiling.stage`): every path but ``"conv"``
-    and the sector renderer's marks ``front`` (render, window gather,
-    pooled panorama, lag statistics), ``familiarity``, ``lib_pmin`` (with a
-    lib axis) and ``decide`` (the RIDF min-pool and :func:`_make_decide`'s
-    decision). ``"kernel"`` with NCC, ``"plain"`` and ``"infomax"`` mark
-    the candidate gathers as ``candidates`` between ``front`` and
-    ``familiarity`` when their lags form one chunk; with several, each
-    chunk's gather and score alternate inside ``familiarity``, since a
-    stage is marked once a step. ``"kernel"`` with SSD gathers nothing and
-    marks no ``candidates``. ``"conv"`` and the sector renderer's path
-    mark ``familiarity`` and ``decide``.
+    (:func:`navdv_torch.utils.profiling.stage`): the full renderer's paths
+    mark ``front`` (render, pooled panorama, lag statistics),
+    ``familiarity``, ``lib_pmin`` (with a lib axis) and ``decide`` (the
+    RIDF min-pool and :func:`_make_decide`'s decision); the candidate paths
+    mark their gather as ``candidates`` between ``front`` and
+    ``familiarity`` when their lags form one chunk (:func:`_candidate_score`).
+    The sector renderer's path marks ``familiarity`` (render, score and the
+    collective) and ``decide``.
     """
     dev = resolve_device(device)
     fam_impl = resolve_fam_impl(cfg, fam_impl)
@@ -462,99 +531,16 @@ def make_step_batched(cfg: SimConfig, fam_impl: str = "kernel", device=None, lib
     _warn_unused_knobs(cfg, fam_impl)
     decide = _make_decide(cfg, dev)
     lags, window_idx = scan_lag_sets(cfg.scan)
-    window_idx_dev = torch.as_tensor(window_idx.astype(np.int64), device=dev)  # [Nh, 2t+1]
     # the sector renderer serves the spectral path only; like the JAX
     # package, every other path renders "full" (numerically equivalent)
     if cfg.sensor.render_mode == "sector" and fam_impl == "fft":
         lib_min_fft = make_lib_min_fft(cfg.sensor, cfg.scan, lags, dev)
-        fam_of, prepare = _make_sector_fam(cfg, lib_min_fft, lags, window_idx_dev, dev, lib_axis)
-        step = _step_from_fam(fam_of, decide)
-        step.lib_prepare = prepare
-        return step
-    render_b = make_render_batch(cfg.sensor, dev)
-    if fam_impl == "conv":
-        fam_conv = make_fam_conv(cfg.sensor, cfg.scan, dev)
-
-        def fam_of(states: AgentState, st: EpisodeStatics, aux=None) -> torch.Tensor:
-            fam = fam_conv(render_b(st.landscape, states.xy, states.theta), st.lib)
-            return lib_pmin(fam, lib_axis)  # the minimum commutes with the pooling
-
-        step = _step_from_fam(fam_of, decide)
-        step.lib_prepare = None
-        return step
-    pooled = make_pooled_panorama(cfg.sensor, dev)
-    # the lag statistics: NCC's mean and spread on every path but the
-    # kernel's (which sums its own), both metrics' on infomax
-    needs_stats = fam_impl == "infomax" or (cfg.scan.metric == "ncc" and fam_impl != "kernel")
-    lag_stats = make_lag_stats(cfg.sensor, lags, dev) if needs_stats else None
-
-    def front(states: AgentState, st: EpisodeStatics):
-        with stage("front"):
-            s = pooled(render_b(st.landscape, states.xy, states.theta))  # [B, R, A]
-            lag_sum = lag_sq = None
-            if lag_stats is not None:
-                lag_sum, lag_sq = lag_stats(s.double())  # [B, L] each
-        return s, lag_sum, lag_sq
-
-    if fam_impl in ("fft", "roll") or (fam_impl == "kernel" and cfg.scan.metric == "ssd"):
-        if fam_impl == "kernel":  # the candidates are formed inside the kernel
-            lib_min_s = make_lib_min_pooled(cfg.sensor, lags, dev)
-        else:
-            make = make_lib_min_fft if fam_impl == "fft" else make_lib_min_roll
-            lib_min_s = make(cfg.sensor, cfg.scan, lags, dev)
-
-        def lag_min(states: AgentState, st: EpisodeStatics, aux) -> torch.Tensor:
-            s, lag_sum, lag_sq = front(states, st)
-            with stage("familiarity"):
-                m = lib_min_s(s, st.lib, lag_sum, lag_sq, aux)
-            return lib_pmin(m, lib_axis)  # [B, L]
-
-        step = _step_from_lag_min(lag_min, window_idx_dev, decide)
-        prepare = getattr(lib_min_s, "prepare", None)  # the pooled kernel needs none
-        step.lib_prepare = None if prepare is None else (lambda st: prepare(st.lib))
-        return step
-
-    lib_min = _make_lib_min(cfg, fam_impl, dev)
-    p = cfg.sensor.n_pixels
-    n_lags = len(lags)
-    chunk = max(1, FAM_CHUNK_ELEMS // p)
-    chunk_bounds = (
-        [(0, n_lags)]
-        if n_lags * p <= FAM_CHUNK_ELEMS
-        else [(i, min(i + chunk, n_lags)) for i in range(0, n_lags, chunk)]
-    )
-    chunk_views = [
-        (lo, hi, make_views_from_pooled(cfg.sensor, lags[lo:hi], dev))
-        for lo, hi in chunk_bounds
-    ]
-
-    def score(cand, lo, hi, st, lag_sum, lag_sq, aux):
-        return lib_min(cand, st.lib, None if lag_sum is None else lag_sum[:, lo:hi],
-                       None if lag_sq is None else lag_sq[:, lo:hi], aux)
-
-    if len(chunk_views) == 1:
-        (lo, hi, views), = chunk_views
-
-        def lag_min(states: AgentState, st: EpisodeStatics, aux) -> torch.Tensor:
-            s, lag_sum, lag_sq = front(states, st)
-            with stage("candidates"):
-                cand = views(s)  # [B, L, P]
-            with stage("familiarity"):
-                m = score(cand, lo, hi, st, lag_sum, lag_sq, aux)
-            return lib_pmin(m, lib_axis)  # [B, L]
+        lag_min, prepare = _make_sector_lag_min(cfg, lib_min_fft, lags, dev, lib_axis)
     else:
-        # one chunk's candidates at a time: their gathers and scores alternate
-        # inside the one stage a step marks
-        def lag_min(states: AgentState, st: EpisodeStatics, aux) -> torch.Tensor:
-            s, lag_sum, lag_sq = front(states, st)
-            with stage("familiarity"):
-                m = torch.cat([score(v(s), lo, hi, st, lag_sum, lag_sq, aux)
-                               for lo, hi, v in chunk_views], dim=1)  # [B, L]
-            return lib_pmin(m, lib_axis)
-
-    step = _step_from_lag_min(lag_min, window_idx_dev, decide)
-    prepare = getattr(lib_min, "prepare", None)  # infomax: train once per library
-    step.lib_prepare = None if prepare is None else (lambda st: prepare(st.lib))
+        lag_min, prepare = _make_full_lag_min(cfg, fam_impl, lags, dev, lib_axis)
+    window_idx = torch.as_tensor(window_idx.astype(np.int64), device=dev)  # [Nh, 2t+1]
+    step = _step_from_lag_min(lag_min, window_idx, decide)
+    step.lib_prepare = prepare
     return step
 
 

@@ -144,7 +144,7 @@ def _make_familiarity_probe(cfg: SimConfig, fam_impl: str, dev: torch.device, li
     probe.angles = np.asarray(shifts, dtype=np.float32) * cfg.sensor.bin_width
     probe.prepare = prepare
     probe.best = best
-    probe.fused = bool(getattr(fam_of, "fused", False))
+    probe.fused = fam_of.fused
     probe.eager, best.eager = probe_eager, best_eager
     probe.captured = dev.type == "cuda" and not host_collectives(lib_axis)
     return probe

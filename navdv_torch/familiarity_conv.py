@@ -19,9 +19,11 @@ window sums of T^2 summed over the rings.
 Numerics (ROADMAP C.7): T is built from ``fl32(S / u)``, the fp32 values
 the min-distance kernel scores (``sensor.make_views_from_pooled``), and
 only then widened to fp64; the product, the norms and the distances are
-fp64 (ROADMAP C.1). NCC takes mean and spread from the lag statistics of
-the pooled panorama in fp64, as the plain NCC path does. The path then
-equals the port's ``"plain"`` path up to fp64 summation order.
+fp64 (ROADMAP C.1). NCC takes mean and spread from the step's lag
+statistics of the pooled panorama in fp64, as the plain NCC path does. The
+path then equals the port's ``"plain"`` path up to fp64 summation order.
+Like every other path, it scores the step's pooled panorama and returns the
+per-lag minima; the step pools them.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import torch
 from navdv_torch.config import ScanConfig, SensorConfig
 from navdv_torch.device import resolve_device
 from navdv_torch.familiarity import NCC_EPS, PAD_PENALTY, LibraryPack
-from navdv_torch.sensor import make_lag_stats, make_pooled_panorama, scan_lag_sets
+from navdv_torch.sensor import scan_lag_sets
 
 
 def conv_lag_geometry(sensor: SensorConfig, scan: ScanConfig):
@@ -59,17 +61,18 @@ def unfold_contraction(lhs: torch.Tensor, rhs: torch.Tensor, w: int) -> torch.Te
     return (rows @ rhs.T).view(n, q, -1)
 
 
-def make_fam_conv(sensor: SensorConfig, scan: ScanConfig, device=None):
-    """Batched familiarity ``fam(pano f32[B, R, A], lib) -> f32[B, Nh]``: the
-    raw fine panorama in (pooling folded in), the RIDF-pooled per-heading
-    familiarity out."""
+def make_lib_min_conv(sensor: SensorConfig, scan: ScanConfig, device=None):
+    """Per-lag library minimum ``lib_min(s f32[B, R, A], lib, lag_sum,
+    lag_sq, aux=None) -> M f32[B, L]`` at ``scan_lag_sets``' lags: the
+    step's pooled panorama in, with NCC the step's lag statistics of it
+    (f64[B, L] each); no prepare stage, ``aux`` unread."""
     if scan.metric not in ("ssd", "ncc"):
         raise ValueError(f"unknown familiarity metric {scan.metric!r}")
     dev = resolve_device(device)
     u, r, w = sensor.az_upsample, sensor.n_radial, sensor.n_azimuth
     a = sensor.n_fine
     p = float(sensor.n_pixels)
-    lags, window_idx, qmin, qrange, lag_rows = conv_lag_geometry(sensor, scan)
+    _, _, qmin, qrange, lag_rows = conv_lag_geometry(sensor, scan)
     width = qrange - 1 + w
     # static gather building the extended planes:
     # text[j, r, w'] = S[r, ((w' + qmin) * u + j) mod A]
@@ -77,24 +80,20 @@ def make_fam_conv(sensor: SensorConfig, scan: ScanConfig, device=None):
     col_idx = ((wprime[None, :] + qmin) * u + np.arange(u)[:, None]) % a  # [u, width]
     col_idx = torch.as_tensor(col_idx.reshape(-1).astype(np.int64), device=dev)
     lag_rows = torch.as_tensor(lag_rows.astype(np.int64), device=dev)
-    window_idx = torch.as_tensor(window_idx.astype(np.int64), device=dev)  # [Nh, 2t+1]
     inv_u = 1.0 / u
-    pooled = make_pooled_panorama(sensor, dev)
-    stats = make_lag_stats(sensor, lags, dev) if scan.metric == "ncc" else None
 
     def at_lags(grid: torch.Tensor, b: int) -> torch.Tensor:
         """Grid f64[B*u, qrange, C] -> f64[B, C, L] in lag order."""
         c = grid.shape[2]
         return grid.view(b, u * qrange, c).index_select(1, lag_rows).transpose(1, 2)
 
-    def fam(pano: torch.Tensor, lib: LibraryPack) -> torch.Tensor:
-        b = pano.shape[0]
-        s = pooled(pano)
+    def lib_min(s: torch.Tensor, lib: LibraryPack, lag_sum, lag_sq, aux=None) -> torch.Tensor:
+        b = s.shape[0]
         # fl32(S / u) first, as the kernel path's candidates, then fp64
         text = (s * inv_u).index_select(2, col_idx).view(b, r, u, width)
         lhs = text.permute(0, 2, 1, 3).reshape(b * u, r, width).double()
         pen = (1.0 - lib.valid.double()) * PAD_PENALTY
-        if stats is None:
+        if scan.metric == "ssd":
             cross = at_lags(unfold_contraction(lhs, lib.flat.double(), w), b)  # [B, Nl, L]
             sq = torch.sum(lhs * lhs, dim=1).unfold(1, w, 1).sum(dim=2)  # [B*u, qrange]
             csq = at_lags(sq.view(b * u, qrange, 1), b)  # [B, 1, L]
@@ -103,12 +102,11 @@ def make_fam_conv(sensor: SensorConfig, scan: ScanConfig, device=None):
         else:
             z = lib.z.double()
             cross = at_lags(unfold_contraction(lhs, z, w), b)  # [B, Nl, L]
-            lag_sum, lag_sq = stats(s.double())  # [B, L] each
             mu = lag_sum / p
             sigma = torch.sqrt((lag_sq / p - mu * mu).clamp_min(0.0) + NCC_EPS)
             zsum = torch.sum(z, dim=1)  # [Nl]
             zdot = (cross - mu[:, None, :] * zsum[None, :, None]) / sigma[:, None, :]
             m = torch.min(1.0 - zdot / p + pen[None, :, None], dim=1).values
-        return torch.min(m.float()[:, window_idx], dim=2).values  # [B, Nh] RIDF pool
+        return m.float()  # [B, L]
 
-    return fam
+    return lib_min

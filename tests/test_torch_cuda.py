@@ -302,17 +302,31 @@ def test_extraction_free_paths_on_card(dev, impl, scan_kw, b):
 @pytest.mark.parametrize("b", [1, 7])
 def test_conv_fam_on_card(dev, metric, b):
     """The conv path's fp64 convolution on the card against the CPU at ragged
-    shapes (P = 75, negative lags, a tolerance window): equal up to fp64
-    summation order."""
-    from navdv_torch.familiarity_conv import make_fam_conv
+    shapes (P = 75, negative lags, a tolerance window): the per-lag minima
+    of the pooled panorama, RIDF-pooled here as the step pools them, equal
+    up to fp64 summation order."""
+    from navdv_torch.familiarity_conv import make_lib_min_conv
+    from navdv_torch.sensor import make_lag_stats, make_pooled_panorama
 
     rng = np.random.default_rng(11)
     sensor = SensorConfig(n_radial=3, n_azimuth=25, az_upsample=3)
     scan = ScanConfig(n_headings=12, scan_step_bins=1, tol_bins=1, metric=metric)
     pano = torch.from_numpy(rng.uniform(size=(b, 3, sensor.n_fine)).astype(np.float32))
     lib = pack_library(torch.from_numpy(rng.uniform(size=(7, 3, 25)).astype(np.float32)))
-    out = {str(d): make_fam_conv(sensor, scan, d)(pano.to(d), LibraryPack(*(t.to(d) for t in lib)))
-           .cpu() for d in ("cpu", dev)}
+    lags, window_idx = scan_lag_sets(scan)
+
+    def fam(d):
+        s = make_pooled_panorama(sensor, d)(pano.to(d))
+        lag_sum = lag_sq = None
+        if metric == "ncc":
+            lag_sum, lag_sq = make_lag_stats(sensor, lags, d)(s.double())
+        m = make_lib_min_conv(sensor, scan, d)(s, LibraryPack(*(t.to(d) for t in lib)),
+                                               lag_sum, lag_sq)
+        assert m.dtype == torch.float32 and m.shape == (b, len(lags))
+        return torch.min(m[:, torch.as_tensor(window_idx.astype(np.int64), device=d)],
+                         dim=2).values.cpu()
+
+    out = {str(d): fam(d) for d in ("cpu", dev)}
     torch.testing.assert_close(out[str(dev)], out["cpu"], rtol=1e-9, atol=1e-9)
 
 

@@ -438,13 +438,13 @@ def test_kernel_ssd_step_equals_the_gathered_candidates_step_on_card(dev):
         return torch.min(m[:, window_idx], dim=2).values
 
     step = agent.make_step_batched(cfg, "kernel", device=dev)
-    want_step = agent._step_from_fam(gathered_fam, agent._make_decide(cfg, dev))
+    decide = agent._make_decide(cfg, dev)
     ops.reset_launch_counts()
     got = want = states
     for _ in range(cfg.agent.max_steps):
         assert torch.equal(step.fam(got, st), gathered_fam(got, st))
         got, got_rec = step(got, st)
-        want, want_rec = want_step(want, st)
+        want, want_rec = decide(want, gathered_fam(want, st), st)
         _assert_equal((got, got_rec), (want, want_rec))
     counts = ops.launch_counts()
     assert counts["min_distance_pooled"] == counts["min_distance"] == 2 * cfg.agent.max_steps

@@ -5,6 +5,7 @@ profile; spans under a recording and under ``torch.profiler``, and nothing
 when off; the step's stage marks and how a recording folds them;
 ``capture.capture_counts``."""
 
+import dataclasses
 import os
 
 import numpy as np
@@ -154,21 +155,40 @@ def test_stage_marks_are_noops_on_the_cpu(sim, monkeypatch):
     assert capture.capture_counts() == before
 
 
-@pytest.mark.parametrize("fam_impl,stages", [
-    ("fft", ["front", "familiarity", "decide"]),
-    ("roll", ["front", "familiarity", "decide"]),
-    ("kernel", ["front", "familiarity", "decide"]),
-    ("plain", ["front", "candidates", "familiarity", "decide"]),
-    ("conv", ["familiarity", "decide"]),
+# the sector renderer's two front ends: fused (u = 1) and unfused
+_SECTOR = {
+    "fused": dict(sensor=dict(az_upsample=1, render_mode="sector"),
+                  scan=dict(fused_dft_precision="default")),
+    "unfused": dict(sensor=dict(render_mode="sector"), scan=dict(fused_dft_precision="off")),
+}
+
+
+@pytest.mark.parametrize("fam_impl,sector,stages", [
+    ("fft", None, ["front", "familiarity", "decide"]),
+    ("roll", None, ["front", "familiarity", "decide"]),
+    ("kernel", None, ["front", "familiarity", "decide"]),
+    ("plain", None, ["front", "candidates", "familiarity", "decide"]),
+    ("conv", None, ["front", "familiarity", "decide"]),
+    ("infomax", None, ["front", "candidates", "familiarity", "decide"]),
+    ("fft", "fused", ["familiarity", "decide"]),
+    ("fft", "unfused", ["familiarity", "decide"]),
 ])
-def test_step_marks_its_stages_in_order(small_cfg, small_world, monkeypatch, fam_impl, stages):
+def test_step_marks_its_stages_in_order(small_cfg, small_world, monkeypatch, fam_impl, sector,
+                                        stages):
     """Inside a capture with marks on, each step marks its stages once, in
     order, and gives the result it gives outside one."""
     land, route = small_world
     cfg = config_from(small_cfg)
+    if sector is not None:
+        knobs = _SECTOR[sector]
+        cfg = dataclasses.replace(
+            cfg, sensor=dataclasses.replace(cfg.sensor, **knobs["sensor"]),
+            scan=dataclasses.replace(cfg.scan, **knobs["scan"]))
     st = make_statics(land, train_library(land, route, cfg, device="cpu"), route, device="cpu")
     states = init_state(np.full((3, 2), 64.0), np.zeros(3), device="cpu")
     step = make_step_batched(cfg, fam_impl, device="cpu")
+    if sector is not None:
+        assert step.fam.fused is (sector == "fused")
     aux = None if step.lib_prepare is None else step.lib_prepare(st)
     monkeypatch.setattr(profiling, "_event", object)
     want = step(states, st, aux)

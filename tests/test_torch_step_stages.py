@@ -4,9 +4,9 @@
 statistics inside ``front``; ``"kernel"`` with SSD forms its candidates
 inside the distance kernel and marks ``front``, ``familiarity`` and
 ``decide``. The step built that way gives, bit for bit, what the same
-pipeline with materialised candidates gives assembled as one familiarity
-stage (``agent._step_from_fam``), on worlds of BASELINE config 4's sensor
-and scan, in one chunk of lags and in several."""
+pipeline with materialised candidates gives assembled by hand as one
+familiarity function and the decision, on worlds of BASELINE config 4's
+sensor and scan, in one chunk of lags and in several."""
 
 import dataclasses
 
@@ -123,8 +123,8 @@ def test_several_chunks_score_inside_familiarity(monkeypatch):
 
 def _one_stage_step(cfg, fam_impl):
     """The candidate paths' step as one familiarity stage: render, pool,
-    gather each chunk's candidates, score, concatenate, RIDF-pool, under
-    ``agent._step_from_fam``."""
+    gather each chunk's candidates, score, concatenate, RIDF-pool, then
+    ``agent._make_decide``'s decision; ``step.fam`` is that familiarity."""
     dev = "cpu"
     lags, window_idx = scan_lag_sets(cfg.scan)
     window_idx = torch.as_tensor(window_idx.astype(np.int64))
@@ -150,7 +150,13 @@ def _one_stage_step(cfg, fam_impl):
         m = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
         return torch.min(m[:, window_idx], dim=2).values
 
-    return agent._step_from_fam(fam_of, agent._make_decide(cfg, dev)), len(views)
+    decide = agent._make_decide(cfg, dev)
+
+    def step(states, st, aux=None):
+        return decide(states, fam_of(states, st, aux), st)
+
+    step.fam = fam_of
+    return step, len(views)
 
 
 def _assert_bit_equal(got, want):
