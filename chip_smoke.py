@@ -18,7 +18,12 @@ Phases, one JSON line each:
             of 20 back-to-back calls (``ms_in_run``); both also for a kernel
             that does nothing (``empty_kernel``), the floor of each timer.
             The window gather and the render kernel (both modes) must equal
-            their plain versions bit for bit. The window gather's yardstick
+            their plain versions bit for bit; so must the render kernel's
+            pooled entry (``render_pooled``, the step's front: render and
+            the u-tap box filter in one launch), timed beside the route it
+            replaces (render, bf16 cast, f32 copy back, the f32 product
+            against the 0/1 box matrix) with its share of bit-equal
+            elements against that route. The window gather's yardstick
             is one PyTorch indexing call on a strided view of the landscape
             (``unfold``), the render kernel's ``grid_sample``; the port calls
             neither.
@@ -40,9 +45,11 @@ Phases, one JSON line each:
 4. main   — config 4 with the exact familiarity path (``spectral_cutoff=0``):
             train a 50-view library on the 512^2 blobs world, then a batched
             episode of 1024 agents with ``fam_impl="kernel"``; the launch
-            count of each of its four kernels (window, render, the pooled
-            min-distance entry, the decision) over that run must be > 0,
-            and the rows entry's 0;
+            count of each of its four kernels (window, the pooled render,
+            the pooled min-distance entry, the decision) over that run must
+            be > 0, and the rows entry's 0 (below, "render launched" means
+            the pooled render wherever the sensor pools, u > 1, and the
+            plain render at u = 1, as in config 3);
 5. reference — the same episode with ``fam_impl="plain"``: success rates
             within 0.025, >= 99% of agents choose the same first candidate;
 6. lag    — the fused lag familiarity (``ops.lag.make_lag_fam``) on the
@@ -329,7 +336,14 @@ from navdv_torch.ops.lag import (
     lag_smem_bytes,
     make_lag_fam,
 )
-from navdv_torch.ops.render import render_smem_bytes, render_windows, render_windows_plain
+from navdv_torch.ops.render import (
+    render_pooled,
+    render_pooled_plain,
+    render_pooled_smem_bytes,
+    render_smem_bytes,
+    render_windows,
+    render_windows_plain,
+)
 from navdv_torch.ops.window import window_gather, window_gather_plain
 from navdv_torch.oracle import resample_route
 from navdv_torch.parallel import (
@@ -371,9 +385,11 @@ CONFIG2_BATCH = 512  # bench.py SPEC_BATCH[2]
 CONFIG2_VIEWS = 500  # bench.py SPEC_VIEWS[2]
 # the kernel path's familiarity map: the step's kernels but the decision
 # (SSD: the min-distance kernel's pooled entry forms the candidates itself)
-MAP_KERNELS = ("window_gather", "render", "min_distance_pooled")
+# (the full renderer pools: u > 1 renders through the pooled entry, u = 1
+# through the plain one, as config 3 does)
+MAP_KERNELS = ("window_gather", "render_pooled", "min_distance_pooled")
 MAIN_KERNELS = (*MAP_KERNELS, "decide")
-RENDER_KERNELS = ("window_gather", "render")
+RENDER_KERNELS = ("window_gather", "render_pooled")
 DISTANCE_KERNELS = ("min_distance", "min_distance_pooled", "lag_fam")
 DMMA_KERNELS = ("min_distance", "lag_fam")  # built for the fp64 tensor cores
 LAG_POSE_STEPS = (0, 16, 32, 48)  # lag phase: poses at the start and after these steps
@@ -574,6 +590,7 @@ def check_kernels(cfg: SimConfig, route: np.ndarray, dev: torch.device) -> dict[
     results["window_gather"], got = check_window(land, by_np, bx_np, wy, wx)
 
     results["render"] = check_render(got, sensor, dev, rng)
+    results["render_pooled"] = check_render_pooled(got, sensor, dev, rng)
 
     # min distance + running min: both metrics against float64 on the card
     n_lags = 60
@@ -771,6 +788,88 @@ def check_render(win: torch.Tensor, sensor: SensorConfig, dev: torch.device, rng
         plain_ms=render["bf16"]["plain_ms"],
         f32_mode=render["f32"], smem_bytes=smem, shape=[batch, *dx0.shape, wx],
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(grid_sample),
+    )
+
+
+def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in float32 ulps: the distance of their bit patterns on the
+    line that orders every float32."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def box_matrix(sensor: SensorConfig, dev: torch.device) -> torch.Tensor:
+    """The 0/1 [A, A] banded-circulant matrix whose product the port's
+    pooled panorama was before the render kernel summed its taps: column a
+    holds ones at rows (a + j) mod A, j < u."""
+    a, u = sensor.n_fine, sensor.az_upsample
+    box = torch.zeros(a, a, device=dev)
+    cols = torch.arange(a, device=dev)
+    for j in range(u):
+        box[(cols + j) % a, cols] = 1.0
+    return box
+
+
+def check_render_pooled(win: torch.Tensor, sensor: SensorConfig, dev: torch.device,
+                        rng) -> dict:
+    """The render kernel's pooled entry (``render_pooled``, the step's
+    front) against its plain version, bit for bit in both modes, at random
+    poses on windows ``win``; timed beside the route it replaces in the
+    bf16 mode (``route_ms``): the plain entry, the bf16 cast and f32 copy
+    back, and the f32 product against ``box_matrix``. Against that route
+    the bf16 mode's share of bit-equal elements and largest difference in
+    ulps (``route_equal_share``, ``route_max_ulps``)."""
+    batch, wx = win.shape[0], win.shape[2]
+    dx0_np, dy0_np = polar_offsets(sensor)
+    dx0 = torch.from_numpy(dx0_np).to(dev)
+    dy0 = torch.from_numpy(dy0_np).to(dev)
+    u, a = sensor.az_upsample, sensor.n_fine
+    half = wx // 2
+    theta = rng.uniform(-math.pi, math.pi, size=batch)
+    fxy = torch.from_numpy(np.stack([
+        rng.uniform(half, half + 1, size=batch), rng.uniform(half, half + 1, size=batch),
+        np.cos(theta), np.sin(theta)], axis=1).astype(np.float32)).to(dev)
+    box = box_matrix(sensor, dev)
+
+    def route():
+        pano = render_windows(win, fxy, dx0, dy0, True)
+        return (pano.reshape(-1, a).to(torch.bfloat16).float() @ box).reshape(pano.shape)
+
+    pooled = {}
+    for mode, hat_bf16 in (("f32", False), ("bf16", True)):
+        got = render_pooled(win, fxy, dx0, dy0, u, hat_bf16)
+        want = render_pooled_plain(win, fxy, dx0, dy0, u, hat_bf16)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        require(torch.equal(got, want),
+                f"pooled render {mode}: differs from its plain version ({err})")
+        pooled[mode] = dict(
+            max_abs_err=err, tolerance="exact",
+            ms=time_ms(lambda: render_pooled(win, fxy, dx0, dy0, u, hat_bf16)),
+            ms_in_run=time_ms_in_run(lambda: render_pooled(win, fxy, dx0, dy0, u, hat_bf16)),
+            plain_ms=time_ms(lambda: render_pooled_plain(win, fxy, dx0, dy0, u, hat_bf16)),
+        )
+    ulps = ulp_distance(got, route())  # got: the bf16 mode's S
+    samples = batch * dx0.numel()
+    b_ms, b_by = bound(nbytes(win, fxy, dx0, dy0) + samples * 4, samples * (29 + u - 1))
+    smem = _build.load_function("render", "navdv_render_pooled_smem_bytes",
+                                [ctypes.c_int] * 4)(wx, *dx0.shape, u)
+    require(smem == render_pooled_smem_bytes(wx, *dx0.shape, u),
+            f"pooled render kernel asks for {smem} bytes of shared memory, the wrapper's "
+            f"budget assumes {render_pooled_smem_bytes(wx, *dx0.shape, u)}")
+    return dict(
+        route="cuda", source="navdv_torch/csrc/render.cu",
+        replaces="navdv_tpu/ops/render_pallas.py:61 and navdv_tpu/sensor.py:617",
+        max_abs_err=pooled["bf16"]["max_abs_err"], tolerance="exact (both modes)",
+        ms=pooled["bf16"]["ms"], ms_in_run=pooled["bf16"]["ms_in_run"],
+        plain_ms=pooled["bf16"]["plain_ms"], f32_mode=pooled["f32"], smem_bytes=smem,
+        shape=[batch, *dx0.shape, wx], u=u, route_ms=time_ms(route),
+        route_ms_in_run=time_ms_in_run(route),
+        route_equal_share=float((ulps == 0).double().mean()), route_max_ulps=int(ulps.max()),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
 
 
@@ -1078,11 +1177,12 @@ def timed_navigate(sim: NavigationSimulator, **kw):
     return res, counts, episode_s
 
 
-def require_render_only(counts: dict, phase: str, decides: bool = True) -> None:
-    """The extraction-free paths render through the window and render
-    kernels and launch no distance kernel; an episode decides through the
-    decision kernel, a familiarity map never does."""
-    for name in RENDER_KERNELS:
+def require_render_only(counts: dict, phase: str, decides: bool = True,
+                        renders: tuple = RENDER_KERNELS) -> None:
+    """The extraction-free paths render through the window and (pooled)
+    render kernels and launch no distance kernel; an episode decides
+    through the decision kernel, a familiarity map never does."""
+    for name in renders:
         require(counts[name] > 0, f"{phase}: kernel {name} was not launched")
     for name in DISTANCE_KERNELS:
         require(counts[name] == 0, f"{phase}: kernel {name} was launched ({counts[name]})")
@@ -1368,7 +1468,7 @@ def run_sector(cfg4: SimConfig, st4, poses4, dev: torch.device) -> dict:
     t_max = cfg.agent.max_steps
     require(res.record.k.shape == (SECTOR_BATCH, t_max), "sector record shape")
     require(bool(torch.isfinite(res.record.fam[~res.record.done]).all()), "non-finite familiarity")
-    require_render_only(counts, "sector")
+    require_render_only(counts, "sector", renders=("window_gather", "render"))
 
     kcfg = exact_cfg(cfg)
     st = make_statics(land, sim.library, route)
@@ -2540,8 +2640,8 @@ def check_dryrun(n: int, s: dict, cards: int) -> dict[str, int]:
         require(m["lib_pmin"] == [2 * s["steps"] if m["n_lib"] > 1 else 0] * n,
                 f"{tag}: MIN collectives per rank {m['lib_pmin']}")
         for rank, counts in enumerate(m["launches"]):
-            require(counts["window_gather"] > 0 and counts["render"] > 0,
-                    f"{tag}: rank {rank} launched no window or render kernel: {counts}")
+            require(counts["window_gather"] > 0 and counts["render_pooled"] > 0,
+                    f"{tag}: rank {rank} launched no window or pooled render kernel: {counts}")
             require(all(counts[name] == 0 for name in DISTANCE_KERNELS),
                     f"{tag}: rank {rank} launched a distance kernel on fft: {counts}")
             require(counts["decide"] > 0, f"{tag}: rank {rank} launched no decision kernel")
@@ -2696,8 +2796,8 @@ def run_bench_phase() -> dict[str, int]:
         else:
             require(ln.get("ok") is True, f"{what}: ok {ln.get('ok')}")
         n = ln["launches"]
-        require(n["window_gather"] > 0 and n["render"] > 0 and n["decide"] > 0,
-                f"{what}: window, render or decision kernel not launched: {n}")
+        require(n["window_gather"] > 0 and n["render"] + n["render_pooled"] > 0
+                and n["decide"] > 0, f"{what}: window, render or decision kernel not launched: {n}")
         require(n["lag_fam"] == 0, f"{what}: the lag kernel launched: {n}")
         # the parity gate scores gathered candidates (rows entry); every exact
         # recall gate runs the kernel path's SSD step (pooled entry)

@@ -464,8 +464,7 @@ def _make_full_lag_min(cfg: SimConfig, fam_impl: str, lags: np.ndarray, dev, lib
         score = _familiarity_stage(make_lib_min_pooled(cfg.sensor, lags, dev))
     else:  # "kernel" with NCC, "plain", "infomax": extract, then score
         score = _candidate_score(cfg, _make_lib_min(cfg, fam_impl, dev), lags, dev)
-    render_b = make_render_batch(cfg.sensor, dev)
-    pooled = make_pooled_panorama(cfg.sensor, dev)
+    render_s = make_render_batch(cfg.sensor, dev, pooled=True)
     # the lag statistics: NCC's mean and spread on every path but the
     # kernel's (which sums its own), both metrics' on infomax
     needs_stats = fam_impl == "infomax" or (metric == "ncc" and fam_impl != "kernel")
@@ -473,7 +472,7 @@ def _make_full_lag_min(cfg: SimConfig, fam_impl: str, lags: np.ndarray, dev, lib
 
     def lag_min(states: AgentState, st: EpisodeStatics, aux) -> torch.Tensor:
         with stage("front"):
-            s = pooled(render_b(st.landscape, states.xy, states.theta))  # [B, R, A]
+            s = render_s(st.landscape, states.xy, states.theta)  # pooled, [B, R, A]
             lag_sum = lag_sq = None
             if lag_stats is not None:
                 lag_sum, lag_sq = lag_stats(s.double())  # [B, L] each

@@ -71,7 +71,6 @@ from navdv_torch.oracle import resample_route
 from navdv_torch.routes import make_route
 from navdv_torch.sensor import (
     make_lag_stats,
-    make_pooled_panorama,
     make_render_batch,
     make_render_batch_rolled,
     make_views_from_pooled,
@@ -448,8 +447,7 @@ def run_pallas_gate(route_length: float = 40.0, config_n: int = 1, batch: int = 
     ops.reset_launch_counts()
     lib, st, states0 = _trained_gate_world(cfg, landscape, route, pts, headings, batch, dev)
     lags, _ = scan_lag_sets(cfg.scan)
-    pooled = make_pooled_panorama(cfg.sensor, dev)
-    s = pooled(make_render_batch(cfg.sensor, dev)(st.landscape, states0.xy, states0.theta))
+    s = make_render_batch(cfg.sensor, dev, pooled=True)(st.landscape, states0.xy, states0.theta)
     cand = make_views_from_pooled(cfg.sensor, lags, dev)(s)
     lag_sum, lag_sq = make_lag_stats(cfg.sensor, lags, dev)(s.double())
     m_kernel = _make_lib_min(cfg, "kernel", dev)(cand, st.lib, lag_sum, lag_sq)
@@ -504,8 +502,7 @@ def run_fam_precision_gate(impl: str, batch: int = 64, n_sample: int = 32,
     lags, _ = scan_lag_sets(cfg.scan)
     make = make_lib_min_fft if impl == "fft" else make_lib_min_roll
     lib_min_impl = make(cfg.sensor, cfg.scan, lags, dev)
-    s = make_pooled_panorama(cfg.sensor, dev)(
-        make_render_batch(cfg.sensor, dev)(st.landscape, states0.xy, states0.theta))
+    s = make_render_batch(cfg.sensor, dev, pooled=True)(st.landscape, states0.xy, states0.theta)
     m_impl = lib_min_impl(s, st.lib, None, None, lib_min_impl.prepare(st.lib))
     cand = make_views_from_pooled(cfg.sensor, lags, dev)(s)
     m_plain = _make_lib_min(cfg, "plain", dev)(cand, st.lib, None, None)

@@ -30,8 +30,9 @@ class SensorConfig:
     r_max: float = 10.0
     # rounding class of the batched renderer's bilinear weights:
     # "float32" (exact bilinear) or "bfloat16" (window values and weights
-    # rounded to bf16, products accumulated in f32). "bfloat16" also selects
-    # the bf16 box filter in sensor.make_pooled_panorama.
+    # rounded to bf16, products accumulated in f32). "bfloat16" also rounds
+    # the panorama to bf16 before the box filter of
+    # sensor.make_pooled_panorama.
     hat_dtype: str = "float32"
     # "full" or "sector": heading = k*bin_width + phi, the panorama rendered
     # in the phi frame and its k roll absorbed in the spectra; takes effect

@@ -13,6 +13,7 @@ from navdv_torch.ops import decide, familiarity, lag, render, window
 _WRAPPERS = {
     "window_gather": window.window_gather,
     "render": render.render_windows,
+    "render_pooled": render.render_pooled,
     "min_distance": familiarity.min_distance_rows,
     "min_distance_pooled": familiarity.min_distance_pooled,
     "lag_fam": lag.lag_lib_min,

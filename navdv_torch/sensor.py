@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from navdv_torch.config import ScanConfig, SensorConfig
 from navdv_torch.device import resolve_device
-from navdv_torch.ops.render import render_windows
+from navdv_torch.ops.render import box_pool, render_pooled, render_windows
 from navdv_torch.ops.window import window_gather
 
 
@@ -98,7 +98,9 @@ def make_render_panorama_gather(sensor: SensorConfig, device=None):
     return render
 
 
-def _make_render(sensor: SensorConfig, hat_bf16: bool, device):
+def _make_render(sensor: SensorConfig, hat_bf16: bool, device, u: int = 1):
+    """The window renderer; with ``u > 1`` it returns the pooled panorama
+    of ``u`` taps, summed by the render kernel (``ops.render.render_pooled``)."""
     dev = resolve_device(device)
     dx0_np, dy0_np = polar_offsets(sensor)
     dx0 = torch.from_numpy(dx0_np).to(dev)
@@ -115,18 +117,26 @@ def _make_render(sensor: SensorConfig, hat_bf16: bool, device):
             [xy[:, 0] - bx.float(), xy[:, 1] - by.float(), torch.cos(theta), torch.sin(theta)],
             dim=1,
         )
+        if u > 1:
+            return render_pooled(wins, fxy, dx0, dy0, u, hat_bf16)
         return render_windows(wins, fxy, dx0, dy0, hat_bf16)
 
     return render_b
 
 
-def make_render_batch(sensor: SensorConfig, device=None):
+def make_render_batch(sensor: SensorConfig, device=None, pooled: bool = False):
     """Batched renderer ``(landscape f32[H, W], xy f32[B, 2], theta f32[B])
     -> pano f32[B, R, A]``: edge-clamped bilinear samples of the polar grid,
-    in the rounding class ``sensor.hat_dtype`` names."""
+    in the rounding class ``sensor.hat_dtype`` names.
+
+    With ``pooled`` it returns the pooled panorama ``S =
+    make_pooled_panorama(sensor)(pano)`` instead, bit for bit, in one
+    launch of the render kernel; at ``az_upsample == 1`` nothing pools and
+    S is the panorama."""
     if sensor.hat_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown hat_dtype {sensor.hat_dtype!r}")
-    return _make_render(sensor, sensor.hat_dtype == "bfloat16", device)
+    return _make_render(sensor, sensor.hat_dtype == "bfloat16", device,
+                        sensor.az_upsample if pooled else 1)
 
 
 def make_render_panorama(sensor: SensorConfig, device=None):
@@ -325,37 +335,19 @@ def unroll_panorama(pano_phi, k) -> np.ndarray:
 
 def make_pooled_panorama(sensor: SensorConfig, device=None):
     """``pooled(pano f32[..., R, A]) -> S f32[..., R, A]`` with
-    ``S[r, a] = sum_{j<u} pano[r, (a+j) mod A]``.
+    ``S[r, a] = sum_{j<u} pano[r, (a+j) mod A]``, for callers that hold a
+    panorama (the step renders S in one launch: ``make_render_batch(...,
+    pooled=True)``).
 
-    Exact path: u-1 rolled adds. With ``hat_dtype="bfloat16"`` the JAX
-    package runs the circular box filter as one matmul of the bf16-rounded
-    panorama against a 0/1 banded-circulant matrix with f32 accumulation;
-    the port does the same product in fp32 on the rounded panorama, which is
-    that rounding class exactly (the 0/1 products are exact)."""
+    The u taps are added left to right (``ops.render.box_pool``). With
+    ``hat_dtype="bfloat16"`` and u > 1 the panorama is rounded to bf16
+    first: the JAX package's rounding class, whose product of the rounded
+    panorama against a 0/1 banded-circulant matrix accumulates in f32, and
+    which the sum equals wherever the u bf16 terms add exactly in f32.
+    ``device`` is unused: the pool keeps no constant."""
     u = sensor.az_upsample
-    dev = resolve_device(device)
-
-    if u > 1 and sensor.hat_dtype == "bfloat16":
-        a = sensor.n_fine
-        box = np.zeros((a, a), np.float32)
-        for j in range(u):
-            box[(np.arange(a) + j) % a, np.arange(a)] = 1.0
-        box_t = torch.from_numpy(box).to(dev)
-
-        def pooled(pano: torch.Tensor) -> torch.Tensor:
-            lead = pano.shape[:-1]
-            flat = pano.reshape(-1, a).to(torch.bfloat16).float()
-            return (flat @ box_t).reshape(*lead, a)
-
-        return pooled
-
-    def pooled(pano: torch.Tensor) -> torch.Tensor:
-        s = pano
-        for j in range(1, u):
-            s = s + torch.roll(pano, -j, dims=-1)
-        return s
-
-    return pooled
+    bf16 = u > 1 and sensor.hat_dtype == "bfloat16"
+    return lambda pano: box_pool(pano, u, bf16)
 
 
 def make_views_from_pooled(sensor: SensorConfig, shifts: np.ndarray, device=None):

@@ -163,7 +163,7 @@ def test_headline_line_keys(runs):
     assert _jax_return_keys("run_bench") - {"gate", "land_kind"} <= set(t)
     assert t["device"] == "cpu" and t["card"] is None and t["vs_baseline"] is None
     assert t["first_call_s"] > 0 and t["chain"] >= 1
-    assert set(t["launches"]) == {"window_gather", "render", "min_distance",
+    assert set(t["launches"]) == {"window_gather", "render", "render_pooled", "min_distance",
                                   "min_distance_pooled", "lag_fam", "decide"}
     assert isinstance(t["ok"], bool)
     json.dumps(t)

@@ -20,7 +20,13 @@ from navdv_torch.ops.familiarity import (
     min_distance_rows_plain,
 )
 from navdv_torch.ops.lag import lag_lib_min, lag_lib_min_plain, make_lag_fam
-from navdv_torch.ops.render import render_windows, render_windows_plain
+from navdv_torch.ops.render import (
+    render_pooled,
+    render_pooled_plain,
+    render_pooled_smem_bytes,
+    render_windows,
+    render_windows_plain,
+)
 from navdv_torch.ops.window import window_gather, window_gather_plain
 from navdv_torch.sensor import make_views_from_pooled, scan_lag_sets
 
@@ -94,6 +100,101 @@ def test_render_on_card_misaligned(dev, hat_bf16):
     got = render_windows(*args)
     torch.cuda.synchronize()
     assert torch.equal(got, render_windows_plain(*args))
+
+
+@pytest.mark.parametrize("hat_bf16", [False, True])
+@pytest.mark.parametrize("b,r,a,u,wsz", [
+    (1, 16, 360, 5, 24), (9, 16, 360, 5, 24), (1024, 16, 360, 5, 24),
+    (5, 3, 50, 2, 7), (9, 17, 360, 5, 24), (3, 2, 4096, 3, 20), (9, 4, 21, 21, 7),
+    (9, 16, 360, 1, 24),
+], ids=["config4_b1", "config4_b9", "config4_b1024", "r3a50_u2_w7", "r17_short_chunk",
+        "a4096_ring_a_block", "u_equals_a21", "u1"])
+def test_render_pooled_on_card(dev, b, r, a, u, wsz, hat_bf16):
+    """The pooled entry bit for bit its plain version (render, bf16 round
+    in the bf16 class, left-to-right u-tap sum): configs 1, 2 and 4's shape
+    (16 x 360, u = 5) at B = 1, 9 (a short agent tile) and 1024; one chunk
+    with W^2 % 4 != 0; 17 rings, so the last chunk holds fewer; a ring of
+    4096 samples, one a chunk; u = A < 32; u = 1."""
+    win, fxy, dx0, dy0 = _render_inputs(np.random.default_rng(b + r + u), b, wsz, r, a, dev)
+    before = render_pooled.launches
+    got = render_pooled(win, fxy, dx0, dy0, u, hat_bf16)
+    want = render_pooled_plain(win, fxy, dx0, dy0, u, hat_bf16)
+    torch.cuda.synchronize()
+    assert render_pooled.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("hat_bf16", [False, True])
+def test_render_pooled_on_card_misaligned(dev, hat_bf16):
+    """Windows and offsets 4 bytes past a 16-byte boundary: the 4-byte
+    staging path, bit for bit the plain version; and the launcher's shared
+    memory equals the wrapper's budget."""
+    import ctypes
+
+    from navdv_torch import _build
+
+    win, fxy, dx0, dy0 = _render_inputs(np.random.default_rng(3), 9, 24, 16, 360, dev)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=dev)
+        buf[1:].copy_(t.reshape(-1))
+        return buf[1:].view(t.shape)
+
+    args = (shifted(win), fxy, shifted(dx0), shifted(dy0), 5, hat_bf16)
+    got = render_pooled(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, render_pooled_plain(*args))
+    smem = _build.load_function("render", "navdv_render_pooled_smem_bytes", [ctypes.c_int] * 4)
+    assert smem(24, 16, 360, 5) == render_pooled_smem_bytes(24, 16, 360, 5)
+
+
+@pytest.mark.parametrize("config", [4, 3])
+def test_episode_renders_pooled_panorama_on_card(dev, monkeypatch, config):
+    """Over one captured episode of the bench world, config 4 on exact
+    ``kernel`` launches the pooled render once a step and the plain render
+    never, and equals bit for bit the episode that renders the panorama and
+    pools it apart (``make_pooled_panorama``); config 3's sector path (u =
+    1) takes the plain render and never the pooled one."""
+    from chip_smoke import bench_config, slice_config
+    from navdv_torch import agent
+    from navdv_torch.agent import (AgentState, StepRecord, init_state, make_navigate_batch,
+                                   make_statics)
+    from navdv_torch.sensor import make_pooled_panorama, make_render_batch
+    from navdv_torch.training import train_library
+    from navdv_torch.trials import make_trials
+
+    cfg, land, route = slice_config() if config == 4 else bench_config(3, 50)
+    fam_impl, batch = ("kernel", 1024) if config == 4 else ("fft", 256)
+    st = make_statics(land, train_library(land, route, cfg, device=dev), route, dev)
+    states = init_state(*make_trials(route, cfg, batch, seed=0), dev)
+    run = make_navigate_batch(cfg, fam_impl, device=dev)
+    aux = None if run.prepare is None else run.prepare(st)
+    run(states, st, aux)  # capture
+    ops.reset_launch_counts()
+    got = run(states, st, aux)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if config == 3:
+        assert counts["render_pooled"] == 0 and counts["render"] == 66
+        return
+    assert counts["render_pooled"] == cfg.agent.max_steps == 66 and counts["render"] == 0
+
+    def render_then_pool(sensor, device=None, pooled=False):
+        render = make_render_batch(sensor, device)
+        if not pooled:
+            return render
+        pool = make_pooled_panorama(sensor)
+        return lambda *args: pool(render(*args))
+
+    monkeypatch.setattr(agent, "make_render_batch", render_then_pool)
+    ops.reset_launch_counts()
+    want = make_navigate_batch(cfg, fam_impl, device=dev)(states, st, aux)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["render"] > 0 and counts["render_pooled"] == 0
+    for name, g, w in zip(AgentState._fields + StepRecord._fields, [*got[0], *got[1]],
+                          [*want[0], *want[1]]):
+        assert torch.equal(g, w), name
 
 
 @pytest.mark.parametrize("aligned", [True, False])

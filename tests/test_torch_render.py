@@ -12,7 +12,12 @@ import torch
 
 from navdv_torch.convert import config_from
 from navdv_torch.ops.render import (
+    _constants,
     render_chunks,
+    render_pooled,
+    render_pooled_chunks,
+    render_pooled_plain,
+    render_pooled_smem_bytes,
     render_smem_bytes,
     render_windows,
     render_windows_plain,
@@ -97,3 +102,75 @@ def test_render_bf16_rounds_window_values_once():
     want = render_windows_plain(win, fxy, dx0, dy0, True)
     got = render_windows_plain(win.to(torch.bfloat16).float(), fxy, dx0, dy0, True)
     assert torch.equal(got, want)
+
+
+def _box_sum_by_index(pano: torch.Tensor, u: int) -> torch.Tensor:
+    """The u-tap circular sum written out by index: ``((p[a] + p[a+1]) +
+    p[a+2]) + ...`` with every index taken mod A."""
+    a = pano.shape[-1]
+    cols = torch.arange(a)
+    s = pano[..., cols]
+    for j in range(1, u):
+        s = s + pano[..., (cols + j) % a]
+    return s
+
+
+@pytest.mark.parametrize("u", [1, 2, 5])
+@pytest.mark.parametrize("hat_bf16", [False, True])
+def test_render_pooled_plain_is_render_then_box_sum(hat_bf16, u):
+    """The pooled entry's plain version, bit for bit: the plain render,
+    rounded to bf16 in the bf16 class, then the left-to-right u-tap sum; at
+    a ragged B (two agent tiles and 3) and config 4's 16 x 360 rings. The
+    CPU wrapper takes it."""
+    b = 2 * _constants()["RENDER_AGENTS"] + 3
+    win, fxy, dx0, dy0 = _inputs(np.random.default_rng(7 + u), b, 24, 16, 360)
+    pano = render_windows_plain(win, fxy, dx0, dy0, hat_bf16)
+    if hat_bf16:
+        pano = pano.to(torch.bfloat16).float()
+    want = _box_sum_by_index(pano, u)
+    got = render_pooled_plain(win, fxy, dx0, dy0, u, hat_bf16)
+    assert got.shape == (b, 16, 360)
+    assert torch.equal(got, want)
+    before = render_pooled.launches
+    assert torch.equal(render_pooled(win, fxy, dx0, dy0, u, hat_bf16), want)
+    assert render_pooled.launches == before
+
+
+@pytest.mark.parametrize("limit", ["window", "panorama", "ring", "taps"])
+def test_render_pooled_refuses_shapes_beyond_kernel_limits(limit):
+    """The pooled wrapper checks its launch limits on every device, before
+    any build or launch: those of the plain entry (an agent tile of windows
+    and now two ring buffers in shared memory, the chunks within
+    gridDim.y), one ring within one block, and 1 <= u <= A."""
+    c = _constants()
+    most = c["RENDER_MAX_THREADS"] * c["RENDER_SAMPLES"]
+    # config 4: 2 chunks of 8 rings, 2 x 8 x (360 + 4) floats of rings
+    assert render_pooled_chunks(16, 360) == (2, 8)
+    assert render_pooled_smem_bytes(24, 16, 360, 5) == render_smem_bytes(24) + 2 * 8 * 364 * 4
+    win, fxy, dx0, dy0 = _inputs(np.random.default_rng(0), 1, 24, 2, 3)
+    u, match = 2, None
+    if limit == "window":
+        # 82^2 windows fit the plain entry, not with config 4's rings beside them
+        assert render_smem_bytes(82) <= 232_448 < render_pooled_smem_bytes(82, 16, 360, 5)
+        win, fxy, dx0, dy0 = _inputs(np.random.default_rng(0), 1, 82, 16, 360)
+        render_windows(win, fxy, dx0, dy0, False)
+        u, match = 5, "shared memory"
+    elif limit == "panorama":
+        dx0 = dy0 = torch.zeros(1).expand(65535 * (most // 360) + 1, 360)  # no storage
+        assert render_pooled_chunks(*dx0.shape)[0] == 65536
+        match = "too large"
+    elif limit == "ring":
+        assert render_pooled(win, fxy, *_inputs(np.random.default_rng(0), 1, 24, 1, most)[2:],
+                             u, False).shape == (1, 1, most)
+        dx0 = dy0 = torch.zeros(1, most + 1)
+        match = "does not fit one block"
+    else:
+        assert render_pooled(win, fxy, dx0, dy0, 3, False).shape == (1, 2, 3)
+        for bad in (0, 4):
+            with pytest.raises(ValueError, match="taps must lie"):
+                render_pooled(win, fxy, dx0, dy0, bad, False)
+        return
+    before = render_pooled.launches
+    with pytest.raises(ValueError, match=match):
+        render_pooled(win, fxy, dx0, dy0, u, False)
+    assert render_pooled.launches == before

@@ -78,3 +78,50 @@ def test_static_geometry_and_bilinear_match_jax(small_world):
     got = ts.bilinear_sample(torch.from_numpy(land), torch.from_numpy(xs), torch.from_numpy(ys))
     want = js.bilinear_sample(jnp.asarray(land), jnp.asarray(xs), jnp.asarray(ys))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+@pytest.mark.parametrize("az_upsample", [1, 3, 5])
+@pytest.mark.parametrize("hat_dtype", ["float32", "bfloat16"])
+def test_pooled_render_matches_pool_of_render_and_jax(small_world, hat_dtype, az_upsample):
+    """The step's pooled render (``make_render_batch(..., pooled=True)``)
+    equals ``make_pooled_panorama`` of the plain render bit for bit, and
+    stays within 1e-5 of the JAX package's ``make_pooled_panorama`` of the
+    same panorama (its bf16 class a product against the 0/1 matrix); at u =
+    1 it is the plain render."""
+    land, _ = small_world
+    sensor = SensorConfig(n_radial=4, n_azimuth=24, az_upsample=az_upsample, r_min=2.0,
+                          r_max=8.0, hat_dtype=hat_dtype)
+    psensor = _port(sensor)
+    rng = np.random.default_rng(az_upsample)
+    xy = torch.from_numpy(rng.uniform(20, 100, size=(11, 2)).astype(np.float32))
+    theta = torch.from_numpy(rng.uniform(-4, 4, size=11).astype(np.float32))
+    args = (torch.from_numpy(land), xy, theta)
+    pano = ts.make_render_batch(psensor, device="cpu")(*args)
+    s = ts.make_render_batch(psensor, device="cpu", pooled=True)(*args)
+    assert torch.equal(s, ts.make_pooled_panorama(psensor)(pano))
+    if az_upsample == 1:
+        assert torch.equal(s, pano)
+    s_j = np.asarray(js.make_pooled_panorama(sensor)(jnp.asarray(pano.numpy())))
+    np.testing.assert_allclose(s.numpy(), s_j, atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bf16_pool_is_exact_where_its_partial_sums_are(seed):
+    """The bf16 class's pool (round, then the left-to-right u-tap sum) is
+    the exact sum of the rounded taps wherever each partial sum is a
+    float32: the value any f32 accumulation that rounds nothing gives, the
+    former 0/1 product's included. Panoramas with values from 1e-6 to 1
+    reach elements of both kinds."""
+    psensor = _port(SensorConfig(hat_dtype="bfloat16"))
+    rng = np.random.default_rng(seed)
+    shape = (5, psensor.n_radial, psensor.n_fine)
+    pano = torch.from_numpy((10.0 ** rng.uniform(-6, 0, size=shape)).astype(np.float32))
+    s = ts.make_pooled_panorama(psensor)(pano)
+    p64 = pano.to(torch.bfloat16).double()
+    exact = p64
+    partial_exact = torch.ones(shape, dtype=torch.bool)
+    for j in range(1, psensor.az_upsample):
+        exact = exact + torch.roll(p64, -j, dims=-1)
+        partial_exact &= exact.float().double() == exact
+    assert 0.0 < float(partial_exact.double().mean()) < 1.0
+    assert torch.equal(s.double()[partial_exact], exact[partial_exact])

@@ -12,6 +12,7 @@ from navdv_torch import ops
 from navdv_torch.config import SensorConfig
 from navdv_torch.ops.familiarity import min_distance_pooled, min_distance_rows
 from navdv_torch.ops.lag import lag_lib_min
+from navdv_torch.ops.render import render_pooled
 from navdv_torch.ops.window import window_gather
 from navdv_tpu.ops.window_pallas import make_window_gather_pallas
 
@@ -54,8 +55,11 @@ def test_wrappers_take_plain_path_on_cpu_only(small_world):
                 torch.arange(-2, 3, dtype=torch.int32))
     min_distance_pooled(a.reshape(4, 2, 12), torch.arange(-2, 3, dtype=torch.int32), a[:3],
                         torch.zeros(3), sensor, -2.0, True)
-    assert ops.launch_counts() == {"window_gather": 0, "render": 0, "min_distance": 0,
-                                   "min_distance_pooled": 0, "lag_fam": 0, "decide": 0}
+    render_pooled(torch.ones(2, 6, 6), torch.ones(2, 4), torch.zeros(2, 12), torch.zeros(2, 12),
+                  2, True)
+    assert ops.launch_counts() == {"window_gather": 0, "render": 0, "render_pooled": 0,
+                                   "min_distance": 0, "min_distance_pooled": 0, "lag_fam": 0,
+                                   "decide": 0}
     meta = torch.empty(8, 12, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         min_distance_rows(meta, meta[:3], torch.empty(3, device="meta"), -2.0, True)
@@ -63,6 +67,9 @@ def test_wrappers_take_plain_path_on_cpu_only(small_world):
         min_distance_pooled(meta.reshape(4, 2, 12), torch.zeros(5, dtype=torch.int32,
                             device="meta"), meta[:3], torch.empty(3, device="meta"), sensor,
                             -2.0, True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        render_pooled(torch.empty(2, 6, 6, device="meta"), torch.empty(2, 4, device="meta"),
+                      *(torch.empty(2, 12, device="meta"),) * 2, 2, True)
 
 
 def test_window_gather_refuses_landscapes_past_32_bit_offsets():
