@@ -13,11 +13,17 @@ module:
   step) whose pose is not one step of the reference's kinematics along the
   program's own chosen heading from the program's previous pose, whose
   distance to the route is not the reference's, or which moved after the
-  agent had finished;
+  agent had finished; and, from the first column in which every agent's
+  record is done (where an early-exit loop stops writing), records that
+  are neither that loop's untouched padding (every field 0, done) nor a
+  done record that repeats the previous pose;
 - ``status_mismatch``: agents whose finished flags or final status differ
-  from the reference's stop rules along their trajectory, whose final pose
-  is not their last record, plus episodes whose success rate, as read on the
-  host, is not the share of agents that reached the goal;
+  from the reference's stop rules along their trajectory (so a loop that
+  stops while an agent is still running is caught by the padding's done
+  flags), whose final pose is not their record in the column before that
+  first all-done one (the last, where there is none), plus episodes whose
+  success rate, as read on the host, is not the share of agents that
+  reached the goal;
 - ``fam_err`` and ``decision_gap``: at a sample of poses drawn from the
   seed among the steps that agents took, the reference computes every
   candidate heading's familiarity in float64 from the program's previous
@@ -95,7 +101,14 @@ def _trajectory_checks(ref, spec, route_t, hw, ep: Episode, dev):
     dist = ref.polyline_dist(r_xy.double().reshape(-1, 2), route_t).reshape(b, t_max)
     ddist = (r_dist.double() - dist).abs()
     bad |= act & ((dxy > POSE_TOL) | (dth > THETA_TOL) | (ddist > POSE_TOL))
-    bad |= r_done & ((r_xy != prev_xy).any(dim=2) | (r_th != prev_th))
+    # e: how far the loop ran, the first column in which every record is done
+    every_done = r_done.all(dim=0)
+    e = int(every_done.long().argmax()) if bool(every_done.any()) else t_max
+    repeats = r_done & (r_xy == prev_xy).all(dim=2) & (r_th == prev_th)
+    padding = (r_done & (r_xy == 0).all(dim=2) & (r_th == 0) & (r_fam == 0) & (r_k == 0)
+               & (r_dist == 0))
+    tail = torch.arange(t_max, device=dev) >= e
+    bad |= torch.where(tail, ~(padding | repeats), r_done & ~repeats)
     pose_mismatch = int(bad.sum())
 
     status, amb = ref.stop_status(r_xy.double().reshape(-1, 2), route_t, hw, spec,
@@ -110,7 +123,8 @@ def _trajectory_checks(ref, spec, route_t, hw, ep: Episode, dev):
     agent_bad = ((r_done != expect_done).any(dim=1)
                  | (f_status.long() != ref_status)
                  | (f_done != (ref_status != ref.STATUS_RUNNING))
-                 | (f_xy != r_xy[:, -1]).any(dim=1) | (f_th != r_th[:, -1]))
+                 | (f_xy != torch.cat([xy0[:, None], r_xy], dim=1)[:, e]).any(dim=1)
+                 | (f_th != torch.cat([th0[:, None], r_th], dim=1)[:, e]))
     status_mismatch = int((agent_bad & ~ambiguous).sum())
     reached = float((f_status == ref.STATUS_REACHED).float().mean())
     if abs(ep.success - reached) > 1e-6:

@@ -6,7 +6,10 @@ Single-card cells drive ``navdv_torch.simulator.NavigationSimulator
 configuration's ``fam_impl_arg`` ("auto" where it states none). Each
 episode is one call: one batch of fresh trials, from the call until its
 success rate is on the host. The loop is closed: each batch waits for the
-last, as a researcher's sweep of trials does.
+last, as a researcher's sweep of trials does. Where the traffic states
+``"early_exit": true``, the facade's episode is the program's early-exit
+run, ``agent.make_navigate_batch(..., early_exit=True)``, the one every
+sweep cell runs: it stops at the chunk in which every agent is done.
 """
 
 from __future__ import annotations
@@ -43,13 +46,18 @@ class Setup:
     spacing: float
     pts: np.ndarray
     headings: np.ndarray
-    call: object  # (starts, thetas) -> (success rate, final, record)
+    call: object  # (starts, thetas) -> (success rate, final, record, steps taken [B])
     library: torch.Tensor  # the program's library views, f32[Nl, R, W]
     release: object
 
 
 def make_world(cell: Cell, seed: int, device):
-    land = world.make_landscape(seed, cell.config["world"], device)
+    """The run's landscape, route and route geometry: the landscape from
+    ``seed``, or from the traffic's ``world_seed`` where it states one, so
+    that every run of the cell navigates one world and ``seed`` draws only
+    the trials."""
+    land = world.make_landscape(cell.traffic.get("world_seed", seed), cell.config["world"],
+                                device)
     route = world.make_route(cell.config["world"])
     spacing, pts, headings = world.route_geometry(cell.config, route)
     return land, route, spacing, pts, headings
@@ -70,17 +78,36 @@ def fam_impl_arg(config: dict, cfg) -> str:
     return arg
 
 
+def early_exit(cell: Cell) -> bool:
+    """Whether the cell's traffic runs the program's early-exit loop."""
+    return bool(cell.traffic.get("early_exit", False))
+
+
 def setup_single(cell: Cell, seed: int, device) -> Setup:
+    from navdv_torch.agent import EXIT_CHUNK, make_navigate_batch
     from navdv_torch.simulator import NavigationSimulator
 
     land, route, spacing, pts, headings = make_world(cell, seed, device)
     cfg = sim_config(cell.config, spacing)
     sim = NavigationSimulator(cfg, land.clone(), route, fam_impl=fam_impl_arg(cell.config, cfg),
-                              device=device).train()
+                              device=device)
+    if early_exit(cell):
+        # the facade has no early-exit option: give it the program's
+        # early-exit run in place of the whole-episode one, before
+        # train() prepares the library's constants for it
+        if not hasattr(sim, "_navigate"):
+            raise RuntimeError("the facade keeps no _navigate: its early-exit run cannot "
+                               "be put in place")
+        run = make_navigate_batch(cfg, fam_impl=sim.fam_impl, early_exit=True, device=sim.device)
+        sim._navigate = run
+    sim.train()
+    if early_exit(cell) and (sim._navigate is not run or run.exit_chunk != EXIT_CHUNK):
+        raise RuntimeError("the facade does not run the early-exit loop of "
+                           f"{EXIT_CHUNK}-step chunks")
 
     def call(starts, thetas):
         r = sim.navigate(starts=starts, headings=thetas)
-        return r.success_rate, tuple(r.final_state), tuple(r.record)
+        return r.success_rate, tuple(r.final_state), tuple(r.record), r.metrics["n_steps"]
 
     return Setup(land, route, spacing, pts, headings, call, sim.library.views,
                  lambda: sim._navigate.release())
@@ -105,16 +132,19 @@ class Reservoir:
 
 
 def _episode(starts, thetas, out) -> check.Episode:
-    success, final, rec = out
+    success, final, rec = out[:3]
     return check.Episode(starts, thetas, final, rec, success)
 
 
 def measure(call, trials: world.Trials, seconds: float, reservoir: Reservoir,
-            more=None) -> tuple[list, float, int]:
+            more=None, columns: list | None = None) -> tuple[list, float, int]:
     """The measured window: episodes until ``seconds`` have passed; returns
     (each episode's seconds, the window's wall seconds, failed episodes).
     ``more(t_now) -> bool``, where given, decides whether another episode
-    follows (a mesh's ranks agree on it), outside the episodes' times."""
+    follows (a mesh's ranks agree on it), outside the episodes' times.
+    ``columns``, where given, gets each episode's exit column: how far its
+    loop had to run, one past the last step any agent took (the most of
+    the steps the program counted, ``out[3]``)."""
     times, failed = [], 0
     gc.collect()
     gc.freeze()  # set-up's objects stay out of the collections the window may run
@@ -129,17 +159,20 @@ def measure(call, trials: world.Trials, seconds: float, reservoir: Reservoir,
         if not 0.0 <= out[0] <= 1.0:
             failed += 1
         reservoir.offer(lambda: _episode(starts, thetas, out))
+        if columns is not None:
+            columns.append(int(out[3].max()))
         go = t1 < deadline if more is None else more(t1 < deadline)
         if not go:
             return times, time.perf_counter() - t_start, failed
 
 
 def traced(call, trials: world.Trials, episodes: int, reservoir: Reservoir, steps: int,
-           context: dict) -> tuple[trace.Trace, int]:
+           context: dict, columns: list | None = None) -> tuple[trace.Trace, int]:
     """The traced slice: ``episodes`` calls under the profiler, each in the
     harness's span, after one call under a profiler of its own that takes
     the profiler's first start; returns (the slice's trace, failed
-    episodes). It calls the program ``episodes + 1`` times."""
+    episodes). It calls the program ``episodes + 1`` times. ``columns`` as
+    in :func:`measure`."""
     failed = 0
     with trace.profiled():
         call(*trials.draw())
@@ -151,6 +184,8 @@ def traced(call, trials: world.Trials, episodes: int, reservoir: Reservoir, step
             if not 0.0 <= out[0] <= 1.0:
                 failed += 1
             reservoir.offer(lambda: _episode(starts, thetas, out))
+            if columns is not None:
+                columns.append(int(out[3].max()))
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     return trace.summarize(prof, episodes * steps, context), failed
@@ -239,18 +274,23 @@ def run_single(cell: Cell, seed: int, seconds: float, traced_run: bool, device,
     stages = {"start": t0 - t_process, "world_and_program": t1 - t0,
               "warm_up": time.time() - t1}
     reservoir = Reservoir(seed, int(cell.traffic["check"]["episodes"]))
-    result = {}
+    columns = [] if early_exit(cell) else None
+    result = {} if columns is None else {"exit_columns": columns}
     if traced_run:
         tr, failed = traced(s.call, trials, episodes_for_trace(cell), reservoir,
-                            steps_of(cell), trace_context(cell, cell.config["views"]))
+                            steps_of(cell), trace_context(cell, cell.config["views"]), columns)
         attempted = episodes_for_trace(cell)
+        launches = sum(map(len, tr.span_launches())) / len(tr.spans)
+        if columns is not None and torch.device(device).type == "cuda" and launches < 2:
+            raise RuntimeError(f"early exit stated, but {launches:g} graph launches an "
+                               "episode: the whole-episode graph ran")
         result["metrics"] = per_layer(cell, tr)
         result["device"] = {"busy_s": tr.busy_s(), "window_s": tr.window_s}
         result["breakdown"] = {"device_ops": tr.top_ops(), "idle_gaps": tr.idle_gaps()}
         result["window"] = trace_summary(tr)
     else:
         t_window = time.time()  # set-up ends: the first timed episode starts
-        times, wall, failed = measure(s.call, trials, seconds, reservoir)
+        times, wall, failed = measure(s.call, trials, seconds, reservoir, columns=columns)
         attempted = len(times)
         result["metrics"] = end_to_end(cell, times, wall, t_window - t_process)
         result["device"] = {}

@@ -111,6 +111,9 @@ def run_rank(cell: Cell, seed: int, seconds: float, traced_run: bool, device_typ
                                       make_navigate_sharded, shard_statics)
     from navdv_torch.training import train_library
 
+    if drive.early_exit(cell):
+        raise ValueError("a cell across cards runs the whole episode: make_navigate_sharded "
+                         "has no early exit")
     t_process = float(os.environ["BENCH_PROCESS_START"])
     rank, size = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     n_data, n_lib = cell.config["mesh"]

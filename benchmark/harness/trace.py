@@ -10,8 +10,10 @@ window, and the steps it held. Nothing is written to disk.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import dataclasses
+import heapq
 import re
 
 import torch
@@ -23,6 +25,9 @@ _DEVICE_KINDS = ("kernel", "gpu_memcpy", "gpu_memset")
 # the profiler on, each episode's cudaGraphLaunch holds the host for
 # milliseconds while the card waits (unprofiled it takes microseconds)
 LAUNCH = "cudaGraphLaunch"
+# the host operators in which CUPTI does the profiler's own work: the card
+# may idle while the host sits in them, and unprofiled they do not run
+PROFILER_OPS = ("Activity Buffer Request", "Buffer Flush")
 
 
 @contextlib.contextmanager
@@ -92,10 +97,25 @@ class Trace:
 
     def launch_stall_s(self) -> float:
         """Seconds in which the card idled while the host was inside
-        ``cudaGraphLaunch``: the profiler's cost, not the program's."""
+        ``cudaGraphLaunch``: the profiler's cost, not the program's. Each
+        launch is matched by bisection to the gaps it overlaps, and the
+        overlaps are summed gap by gap, each gap's in the launches' order."""
         launches = [(x, y) for name, x, y in self.host_ops if name == LAUNCH]
-        return sum(max(0.0, min(e, y) - max(s, x)) for s, e in self._gaps()
-                   for x, y in launches) * 1e-6
+        gaps = self._gaps()
+        starts, ends = [g[0] for g in gaps], [g[1] for g in gaps]
+        terms = []
+        for j, (x, y) in enumerate(launches):
+            for i in range(bisect.bisect_right(ends, x), bisect.bisect_left(starts, y)):
+                terms.append((i, j, min(ends[i], y) - max(starts[i], x)))
+        return sum(max(0.0, t) for _, _, t in sorted(terms)) * 1e-6
+
+    def span_launches(self) -> list:
+        """For each harness span, the (start, end) of the ``cudaGraphLaunch``
+        calls that begin inside it, by start."""
+        launches = sorted((x, y) for name, x, y in self.host_ops if name == LAUNCH)
+        xs = [x for x, _ in launches]
+        return [launches[bisect.bisect_left(xs, a):bisect.bisect_right(xs, b)]
+                for a, b in self.spans]
 
     def idle_share(self) -> float:
         """1 - busy / window, the profiler's launch stalls left out of the
@@ -124,10 +144,16 @@ class Trace:
         device operations in the window: the harness span open at the gap's
         middle, or "harness" outside every span, and the innermost host
         operator open there. The profiler's launch stalls are left out."""
-        out = []
+        out, host = [], sorted((x, y, name) for name, x, y in self.host_ops)
+        k, open_ = 0, []  # the host operators begun by mid, by end
         for s, e in self._gaps():
             mid = 0.5 * (s + e)
-            ops = [(y - x, name) for name, x, y in self.host_ops if x <= mid <= y]
+            while k < len(host) and host[k][0] <= mid:
+                heapq.heappush(open_, (host[k][1], host[k][0], host[k][2]))
+                k += 1
+            while open_ and open_[0][0] < mid:
+                heapq.heappop(open_)
+            ops = [(y - x, name) for y, x, name in open_]
             if ops and min(ops)[1] == LAUNCH:
                 continue
             inside = any(x <= mid <= y for x, y in self.spans)

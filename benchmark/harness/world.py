@@ -6,6 +6,8 @@ The landscape is drawn on the run's device by one ``torch.Generator`` in a
 few large calls; the same tensor goes to the program and to the reference.
 Trials are drawn on the host, one batch per episode, from a NumPy generator
 seeded by ``--seed``: episode i's trials depend on the seed and on i alone.
+A traffic that states ``world_seed`` draws its landscape from that in place
+of ``--seed`` (``drive.make_world``).
 """
 
 from __future__ import annotations
@@ -70,22 +72,34 @@ def route_geometry(config: dict, route: np.ndarray) -> tuple[float, np.ndarray, 
 
 
 class Trials:
-    """Start poses round the route's first capture: ``pos_sigma`` world units
-    and ``heading_sigma`` rad of Gaussian noise, one batch per call, from
-    ``default_rng([seed, stream])``. Batch i is the same whatever the
-    number of batches drawn."""
+    """Start poses, one batch per call, from ``default_rng([seed, stream])``:
+    ``pos_sigma`` world units and ``heading_sigma`` rad of Gaussian noise
+    round a capture of the route. The traffic's ``starts`` says which:
+    ``"route_start"`` (the default) the first capture; ``"anywhere"`` a
+    capture drawn uniformly for each agent from ``[0, max(n - 2, 1))`` of
+    the route's n, before the noise, as ``navdv_torch.trials.make_trials(
+    start_anywhere=True)`` draws it. Batch i is the same whatever the number
+    of batches drawn."""
 
     def __init__(self, seed: int, stream: int, pts: np.ndarray, headings: np.ndarray,
                  traffic: dict):
+        starts = traffic.get("starts", "route_start")
+        if starts not in ("route_start", "anywhere"):
+            raise ValueError(f"unknown starts {starts!r}")
         self._rng = np.random.default_rng([int(seed), stream])
-        self._start = pts[0]
-        self._heading = headings[0]
+        self._pts, self._headings = pts, headings
+        self._anywhere = starts == "anywhere"
         self._batch = int(traffic["batch"])
         self._pos = float(traffic["pos_sigma"])
         self._theta = float(traffic["heading_sigma"])
 
     def draw(self) -> tuple[np.ndarray, np.ndarray]:
+        if self._anywhere:
+            idx = self._rng.integers(0, max(len(self._pts) - 2, 1), size=self._batch)
+            at, heading = self._pts[idx], self._headings[idx]
+        else:
+            at, heading = self._pts[0][None, :], self._headings[0]
         z = self._rng.standard_normal((self._batch, 3))
-        starts = (self._start[None, :] + self._pos * z[:, :2]).astype(np.float32)
-        thetas = (self._heading + self._theta * z[:, 2]).astype(np.float32)
+        starts = (at + self._pos * z[:, :2]).astype(np.float32)
+        thetas = (heading + self._theta * z[:, 2]).astype(np.float32)
         return starts, thetas

@@ -28,6 +28,7 @@ import json  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
+from collections import Counter  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 BENCH_DIR = Path(__file__).resolve().parent
@@ -79,6 +80,11 @@ def emit(result: dict, cell, device_name: str) -> None:
     window = result.pop("window", None)
     if window:
         print("window: " + ", ".join(f"{k} {v:.6g}" for k, v in window.items()), file=sys.stderr)
+    columns = result.pop("exit_columns", None)
+    if columns:
+        counts = Counter(columns)
+        print("exit columns: " + ", ".join(f"{c} x{counts[c]}" for c in sorted(counts)),
+              file=sys.stderr)
     stages = result.pop("setup_stages", None)
     if stages:
         print("set-up s: " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()),

@@ -11,6 +11,10 @@ path (``fam_impl="auto"`` picks it for sensors under 512 pixels).
 az_upsample 1 on the sector renderer's fused front end, NCC at a 3-bin
 tolerance, the spectral series cut at 8 bins, judged by ``sector_ncc``; it
 states ``fam_impl_arg`` "fft", which "auto" would not pick at 192 pixels.
+:data:`EXIT_TINY` gives :data:`TINY` the real cells' step budget (66 steps,
+1.3 times the route), so that agents started anywhere on the route all
+finish before it, and :data:`ANYWHERE` is the traffic that starts them
+there and stops each batch once every agent is done.
 """
 
 from __future__ import annotations
@@ -54,8 +58,12 @@ SECTOR_TINY = dict(
          "agent": TINY["sim"]["agent"]},
     limits={"lib_err": 1e-3, "pose_mismatch": 0, "status_mismatch": 0, "fam_err": 1.5e-7,
             "decision_gap": 1.2e-7})
+EXIT_TINY = dict(TINY, step_budget=1.3,
+                 sim=dict(TINY["sim"], agent=dict(TINY["sim"]["agent"], max_steps=66)))
 FEW = {"why": "4 agents a call", "batch": 4, "pos_sigma": 1.5, "heading_sigma": 0.15,
        "trace_episodes": 2, "check": {"episodes": 2, "poses": 48}}
+ANYWHERE = dict(FEW, why="4 agents a call from anywhere on the route, early exit",
+                starts="anywhere", early_exit=True)
 READER = '''"""Steps in the traced slice (a fixture's metric)."""
 
 
@@ -64,11 +72,13 @@ def read(trace):
 '''
 
 
-def make_checkout(tmp: Path, mesh: list | None = None, config: dict | None = None) -> Path:
+def make_checkout(tmp: Path, mesh: list | None = None, config: dict | None = None,
+                  traffic: dict | None = None) -> Path:
     """A checkout in ``tmp`` with the fixture cell ``fixture_cell`` of the
-    configuration ``config`` (:data:`TINY` by default), and, with ``mesh``,
-    the cell ``fixture_mesh`` of the same configuration on that (data, lib)
-    mesh of CPU ranks."""
+    configuration ``config`` (:data:`TINY` by default) under the traffic
+    ``traffic`` (:data:`FEW` by default), and, with ``mesh``, the cell
+    ``fixture_mesh`` of the same configuration on that (data, lib) mesh of
+    CPU ranks."""
     tmp = Path(tmp)
     config = dict(config or TINY, name="fixture_tiny")
     shutil.copy(ROOT / "BENCHMARK.json", tmp / "BENCHMARK.json")
@@ -76,7 +86,7 @@ def make_checkout(tmp: Path, mesh: list | None = None, config: dict | None = Non
                     ignore=shutil.ignore_patterns("tests", "__pycache__"))
     bench = json.loads((tmp / "BENCHMARK.json").read_text())
     (tmp / "benchmark" / "configs" / "fixture_tiny.json").write_text(json.dumps(config))
-    (tmp / "benchmark" / "traffic" / "fixture_few.json").write_text(json.dumps(FEW))
+    (tmp / "benchmark" / "traffic" / "fixture_few.json").write_text(json.dumps(traffic or FEW))
     (tmp / "benchmark" / "metrics" / "fixture_steps.py").write_text(READER)
     bench["configs"].append({"name": "fixture_tiny", "source": "a test fixture",
                              "file": "benchmark/configs/fixture_tiny.json", "reduced": [],

@@ -74,7 +74,8 @@ def test_benchmark_json_keeps_the_contract():
 
 # the cells so far, in order: a later cell is added after them as data
 KNOWN_CELLS = [("fft_lib50_b1024", 1), ("roll_lib500_b512", 1), ("fft_lib50_b1", 1),
-               ("roll_lib500_b512_mesh1x4", 4), ("sector_lib50_b256", 1)]
+               ("roll_lib500_b512_mesh1x4", 4), ("sector_lib50_b256", 1),
+               ("exact_lib50_b1024", 1), ("fft_lib50_b1024_anywhere", 1)]
 
 
 def test_the_cells_in_their_order():

@@ -1,5 +1,5 @@
 """The cell ``exact_lib50_b1024``: BASELINE config 4 on the exact
-``"kernel"`` path. Its two readers on a synthetic event list, the
+``"kernel"`` path. Its roofline's reader on a synthetic event list, the
 configuration against the program and the reference it names, and the cell
 judged correct at its CPU size."""
 
@@ -17,38 +17,7 @@ from harness.trace import Trace
 CELL = "exact_lib50_b1024"
 SIM = find_cell(CELL).config["sim"]
 CONTEXT = {"batch": 1024, "sensor": SIM["sensor"], "scan": SIM["scan"], "views_per_rank": 50}
-# kernel names as the traced slice of the cell on an H100 gives them
-GATHER = ('void at::native::_scatter_gather_elementwise_kernel<128, 8, '
-          'at::native::_cuda_scatter_gather_internal_kernel<false, at::native::OpaqueType<4>, '
-          'long>::operator()<at::native::TensorAssign>(at::TensorIterator&, long, long, long, '
-          'at::native::TensorAssign const&)::{lambda(int)#1}>(int, '
-          'at::native::_cuda_scatter_gather_internal_kernel<false, at::native::OpaqueType<4>, '
-          'long>::operator()<at::native::TensorAssign>(at::TensorIterator&, long, long, long, '
-          'at::native::TensorAssign const&)::{lambda(int)#1})')
-COPY = ('void at::native::elementwise_kernel<128, 2, at::native::gpu_kernel_impl_nocast<'
-        'at::native::direct_copy_kernel_cuda(at::TensorIteratorBase&)::'
-        '{lambda()#3}::operator()() const::{lambda()#7}::operator()() '
-        'const::{lambda(float)#1}>(at::TensorIteratorBase&, '
-        'at::native::direct_copy_kernel_cuda(at::TensorIteratorBase&)::'
-        '{lambda()#3}::operator()() const::{lambda()#7}::operator()() const::{lambda(float)#1} '
-        'const&)::{lambda(int)#1}>(int, at::native::gpu_kernel_impl_nocast<'
-        'at::native::direct_copy_kernel_cuda(at::TensorIteratorBase&)::'
-        '{lambda()#3}::operator()() const::{lambda()#7}::operator()() '
-        'const::{lambda(float)#1}>(at::TensorIteratorBase&, '
-        'at::native::direct_copy_kernel_cuda(at::TensorIteratorBase&)::'
-        '{lambda()#3}::operator()() const::{lambda()#7}::operator()() const::{lambda(float)#1} '
-        'const&)::{lambda(int)#1})')
-FLOAT_COPY = ('void at::native::unrolled_elementwise_kernel<'
-              'at::native::direct_copy_kernel_cuda(at::TensorIteratorBase&)::'
-              '{lambda()#3}::operator()() const::{lambda()#7}::operator()() '
-              'const::{lambda(float)#1}, std::array<char*, 2ul>, 4, TrivialOffsetCalculator<1, '
-              'unsigned int>, TrivialOffsetCalculator<1, unsigned int>, '
-              'at::native::memory::LoadWithCast<1>, at::native::memory::StoreWithCast<1> >(int,'
-              ' at::native::direct_copy_kernel_cuda(at::TensorIteratorBase&)::'
-              '{lambda()#3}::operator()() const::{lambda()#7}::operator()() '
-              'const::{lambda(float)#1}, std::array<char*, 2ul>, TrivialOffsetCalculator<1, '
-              'unsigned int>, TrivialOffsetCalculator<1, unsigned int>, '
-              'at::native::memory::LoadWithCast<1>, at::native::memory::StoreWithCast<1>)')
+# the tile's name as the traced slice of the cell on an H100 gives it
 TILE = ("(anonymous namespace)::min_distance_kernel(float const*, float const*, float const*, "
         "float*, int, int, int, double, int, int)")
 
@@ -60,16 +29,12 @@ def synthetic(device) -> Trace:
 
 def step_events(t0: float) -> list:
     """One step's kernels from ``t0`` (us): render, the pooling sgemm, the
-    gather (180 us), the permute copy (250 us), the tile (230 us), a copy
-    not of the candidates and the decision."""
+    tile (230 us), a copy and the decision."""
     return [
         ("void (anonymous namespace)::render_kernel<true>(float const*)", "kernel", t0, t0 + 17),
         ("sm80_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize64x128x8_stage3", "kernel",
          t0 + 20, t0 + 120),
-        (GATHER, "kernel", t0 + 120, t0 + 300),
-        (COPY, "kernel", t0 + 300, t0 + 550),
         (TILE, "kernel", t0 + 550, t0 + 780),
-        (FLOAT_COPY, "kernel", t0 + 780, t0 + 790),
         ("Memcpy DtoD (Device -> Device)", "gpu_memcpy", t0 + 790, t0 + 795),
         ("(anonymous namespace)::decide_kernel(float const*)", "kernel", t0 + 800, t0 + 805),
     ]
@@ -86,15 +51,9 @@ def test_min_distance_roofline_on_a_synthetic_trace():
     assert load_reader(ROOT, "min_distance_roofline")(one) == pytest.approx(45.9, abs=0.05)
 
 
-def test_candidate_ms_per_step_on_a_synthetic_trace():
-    t = synthetic(step_events(0.0) + step_events(0.0))
-    # two steps of the gather (180 us) and the float permute copy (250 us)
-    assert load_reader(ROOT, "candidate_ms_per_step.exact")(t) == pytest.approx(0.430)
-
-
-@pytest.mark.parametrize("name", ["min_distance_roofline", "candidate_ms_per_step.exact"])
+@pytest.mark.parametrize("name", ["min_distance_roofline"])
 def test_the_readers_find_nothing_where_the_kernels_are_absent(name):
-    fft_step = [e for e in step_events(0.0) if e[0] not in (GATHER, COPY, TILE)]
+    fft_step = [e for e in step_events(0.0) if e[0] != TILE]
     assert load_reader(ROOT, name)(synthetic(fft_step)) is None
     assert load_reader(ROOT, name)(synthetic([])) is None
 
@@ -118,7 +77,7 @@ def test_the_configuration_states_the_kernel_path_and_the_exact_reference():
         k: v for k, v in fft.config["sim"]["scan"].items() if k != "spectral_cutoff"}
     assert {m["name"] for m in cell.per_layer} == {
         "device_idle_share.batch", "device_ms_per_step.batch", "render_roofline",
-        "min_distance_roofline", "candidate_ms_per_step.exact"}
+        "min_distance_roofline"}
 
 
 def test_the_cell_at_its_cpu_size_is_judged_correct():

@@ -1,5 +1,7 @@
 """A run with the timed path broken underneath comes out not correct: once
-for each fault the cells can have."""
+for each fault the cells can have. The faults of early exit run on the
+fixture cell under :data:`fixture.ANYWHERE` traffic (agents started along
+the whole route, each batch stopped once every agent is done)."""
 
 from __future__ import annotations
 
@@ -12,9 +14,10 @@ import pytest
 import torch
 
 import navdv_torch.agent as agent
-from fixture import BENCH, ROOT, make_checkout
+from fixture import ANYWHERE, BENCH, EXIT_TINY, ROOT, make_checkout
 from harness import drive
 from harness.cells import find_cell
+from navdv_torch.agent import EXIT_CHUNK, STATUS_REACHED, STATUS_RUNNING
 from navdv_torch.simulator import NavigationResult, NavigationSimulator
 
 
@@ -62,13 +65,49 @@ def _half_batch(monkeypatch):
     monkeypatch.setattr(NavigationSimulator, "navigate", navigate)
 
 
-@pytest.mark.parametrize("fault", [None, _state_unchanged, _answer_altered, _half_batch])
+def _early_exit(monkeypatch):
+    """No fault: the program's early exit as it is."""
+
+
+def _one_chunk_early(monkeypatch):
+    """The early-exit loop stops one chunk of steps before every agent is
+    done: the columns of that chunk left as padding, the final state the
+    one after the last step run."""
+    real = NavigationSimulator.navigate
+
+    def navigate(self, **kw):
+        r = real(self, **kw)
+        rec, final = r.record, r.final_state
+        ran = EXIT_CHUNK * ((int(r.metrics["n_steps"].max()) - 1) // EXIT_CHUNK)
+        done = rec.done[:, ran].clone()
+        for f in rec:
+            f[:, ran:] = True if f.dtype == torch.bool else 0
+        status = torch.where(done, final.status, torch.full_like(final.status, STATUS_RUNNING))
+        final = final._replace(xy=rec.xy[:, ran - 1].clone(), theta=rec.theta[:, ran - 1].clone(),
+                               done=done, status=status)
+        rate = float((status == STATUS_REACHED).float().mean())
+        return NavigationResult(rate, r.metrics, final, rec)
+
+    monkeypatch.setattr(NavigationSimulator, "navigate", navigate)
+
+
+EARLY_EXIT = (_early_exit, _one_chunk_early)
+
+
+@pytest.mark.parametrize("fault", [None, _state_unchanged, _answer_altered, _half_batch,
+                                   _early_exit, _one_chunk_early])
 def test_a_broken_program_is_not_correct(fault, tmp_path, monkeypatch):
-    cell = find_cell("fixture_cell", make_checkout(tmp_path))
+    if fault in EARLY_EXIT:
+        root = make_checkout(tmp_path, config=EXIT_TINY, traffic=ANYWHERE)
+    else:
+        root = make_checkout(tmp_path)
+    cell = find_cell("fixture_cell", root)
     if fault is not None:
         fault(monkeypatch)
     result = drive.run_single(cell, 31, 0.3, False, "cpu", 0.0, lambda: None)
-    assert result["correct"] is (fault is None), result["checks"]
+    assert result["correct"] is (fault in (None, _early_exit)), result["checks"]
+    if fault in EARLY_EXIT:  # the batches stopped before the step budget
+        assert min(result["exit_columns"]) < cell.config["sim"]["agent"]["max_steps"]
 
 
 def _mesh(root, fault: str, traced: int = 0) -> dict:
