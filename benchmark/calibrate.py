@@ -31,7 +31,7 @@ def main() -> int:
 
     import torch
 
-    from harness import drive
+    from harness import drive, sweep
     from harness.cells import find_cell
 
     if not torch.cuda.is_available():
@@ -44,8 +44,8 @@ def main() -> int:
         return 2
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.time()
-        result = drive.run_single(cell, seed, args.seconds, False, "cuda", t0, lambda: None,
-                                  control=True)
+        run = sweep.run if sweep.is_sweep(cell) else drive.run_single
+        result = run(cell, seed, args.seconds, False, "cuda", t0, lambda: None, control=True)
         print(json.dumps({"workload": cell.name, "seed": seed, "correct": result["correct"],
                           "attempted": result["attempted"], "numbers": result["numbers"],
                           "metrics": result["metrics"], "seconds": time.time() - t0}),

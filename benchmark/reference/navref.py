@@ -17,8 +17,9 @@ states where that class is part of the definition, and float64 elsewhere:
   to bf16, products summed in float32, positions taken in the frame of the
   ``ceil(2 r_max) + 4`` square window round the agent;
 - the pooled panorama S: the bf16-rounded panorama summed over ``u`` fine
-  bins (exact), a candidate's pixels ``fl32(S / u)`` at the pooled columns
-  ``w u + s`` for shift s;
+  bins (exact), or with a ``float32`` hat the float32 panorama's taps added
+  left to right in float32 (the class's own rounding), a candidate's pixels
+  ``fl32(S / u)`` at the pooled columns ``w u + s`` for shift s;
 - familiarity at shift s: the minimum over the library of the SSD between
   the candidate and each stored view, in float64 from those float32 values,
   with each stored view's squared norm summed in float32 (the library term
@@ -217,13 +218,25 @@ def render_sensor(landscape: torch.Tensor, xy: torch.Tensor, theta: torch.Tensor
     return polar_samples(land, bx, by, fx, fy, c, s, spec)
 
 
+def _tap_sum(pano: torch.Tensor, u: int, in_f32: bool) -> torch.Tensor:
+    """sum_{j < u} pano[..., (a + j) mod A] as float64: exact, or with
+    ``in_f32`` added left to right in float32, ``((p_a + p_{a+1}) +
+    p_{a+2}) + ...``."""
+    p = pano.float() if in_f32 else pano.double()
+    s = p
+    for j in range(1, u):
+        s = s + torch.roll(p, -j, dims=-1)
+    return s.double()
+
+
 def pooled(pano: torch.Tensor, spec: Spec) -> torch.Tensor:
-    """S[..., r, a] = sum_{j < u} pano[..., r, (a + j) mod A] in float64, of
-    the bf16-rounded panorama in the bf16 class (exact sums either way)."""
+    """S[..., r, a] = sum_{j < u} pano[..., r, (a + j) mod A] as float64: in
+    the bf16 class the bf16-rounded panorama's exact sum; in the float32
+    class the float32 sum of the taps left to right, the rounding of the
+    class's pooled panorama (its u float32 terms do not add exactly)."""
     if spec.hat_dtype == "bfloat16" and spec.az_upsample > 1:
         pano = _bf16(pano)
-    p = pano.double()
-    return sum(torch.roll(p, -j, dims=-1) for j in range(spec.az_upsample))
+    return _tap_sum(pano, spec.az_upsample, spec.hat_dtype == "float32")
 
 
 def train_library(landscape: torch.Tensor, route: np.ndarray, spacing: float,
@@ -231,7 +244,7 @@ def train_library(landscape: torch.Tensor, route: np.ndarray, spacing: float,
     """One view f64[Nl, R, W] per resampled route point: the float32
     bilinear panorama (exact hat weights) at the float32 pose, rounded, in
     the bf16 class, to ``pool_dtype`` (bf16; the control passes fp8) before
-    it is pooled."""
+    it is pooled, and pooled as :func:`pooled` pools in its class."""
     pts, headings = resample_route(np.asarray(route, np.float64), spacing)
     dev = landscape.device
     pano = render_sensor(landscape, torch.from_numpy(pts.astype(np.float32)).to(dev),
@@ -240,7 +253,7 @@ def train_library(landscape: torch.Tensor, route: np.ndarray, spacing: float,
     if spec.hat_dtype == "bfloat16" and spec.az_upsample > 1:
         pano = pano.to(pool_dtype or torch.bfloat16)
     n = pano.shape[0]
-    s = pooled(pano.double(), dataclasses.replace(spec, hat_dtype="float32"))
+    s = _tap_sum(pano, spec.az_upsample, spec.hat_dtype == "float32")
     view = s[:, :, ::spec.az_upsample].float() * (1.0 / spec.az_upsample)  # fl32(S / u)
     return view.double().reshape(n, spec.n_radial, spec.n_azimuth)
 

@@ -8,6 +8,8 @@ every shape the cell uses, then measures for ``--seconds`` (``--trace 0``:
 the end-to-end metrics) or profiles a bounded slice of episodes
 (``--trace 1``: the per-layer metrics), compares what the program produced
 with the plain reference, and prints one JSON line last on standard output.
+A sweep configuration's episode is one pass over its grid
+(``harness/sweep.py``).
 The compared numbers, each beside its limit, are the last lines on standard
 error and the last key of that line.
 
@@ -148,10 +150,11 @@ def main(argv=None) -> int:
         if result is None:
             return 0
     else:
-        from harness import drive
+        from harness import drive, sweep
 
-        result = drive.run_single(cell, args.seed, args.seconds, bool(args.trace), "cuda",
-                                  T_PROCESS, guard, args.control)
+        run = sweep.run if sweep.is_sweep(cell) else drive.run_single
+        result = run(cell, args.seed, args.seconds, bool(args.trace), "cuda", T_PROCESS, guard,
+                     args.control)
         result["setup_stages"] = {"import_torch": t_torch, **result["setup_stages"]}
     guard()
     emit(result, cell, torch.cuda.get_device_name(torch.cuda.current_device()))

@@ -92,10 +92,13 @@ def test_each_cell_is_found_as_data(name):
     assert {m["name"] for m in cell.end_to_end} >= {"setup_s"}
     for m in cell.per_layer:
         assert callable(load_reader(ROOT, m["name"]))
-    # the configuration runs as shipped: nothing is cut
-    assert cell.config["world"]["size"] == 512 and cell.config["sim"]["agent"]["max_steps"] == 66
-    assert list(cell.config["limits"])[:5] == ["lib_err", "pose_mismatch", "status_mismatch",
-                                               "fam_err", "decision_gap"]
+    # the configuration runs as shipped: nothing is cut (a sweep's, at each
+    # grid point)
+    assert cell.config["world"]["size"] == 512
+    for config in cell.config.get("points", [cell.config]):
+        assert config["sim"]["agent"]["max_steps"] == 66
+        assert list(config["limits"])[:5] == ["lib_err", "pose_mismatch", "status_mismatch",
+                                              "fam_err", "decision_gap"]
 
 
 def test_a_cell_of_new_files_only_runs(tmp_path):

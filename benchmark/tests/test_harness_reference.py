@@ -20,6 +20,12 @@ CONFIGS = {
     "fft": find_cell("fft_lib50_b1024").config,
     "exact": find_cell("roll_lib500_b512").config,
 }
+# the sweep's float32 hat on each of its paths: the 72x16 sensor at u = 5 on
+# "fft", the 36x8 one at u = 10 on "kernel"
+_SWEEP = find_cell("sweep_default").config
+F32 = {f"{p['fam_impl']}_f32": dict(p, world=_SWEEP["world"], step_budget=_SWEEP["step_budget"])
+       for p in (_SWEEP["points"][0], _SWEEP["points"][4])}
+CONFIGS.update(F32)
 
 
 def _setup(config, seed=3):
@@ -52,7 +58,7 @@ def test_world_is_made_from_the_seed():
     assert np.array_equal(first[0], t2.draw()[0]) and not np.array_equal(first[0], t1.draw()[0])
 
 
-@pytest.mark.parametrize("kind", ["fft", "exact"])
+@pytest.mark.parametrize("kind", ["fft", "exact", *F32])
 def test_sensor_pooling_and_library_equal_the_port(kind):
     config = CONFIGS[kind]
     land, route, spacing, pts, headings = _setup(config)
@@ -69,7 +75,7 @@ def test_sensor_pooling_and_library_equal_the_port(kind):
     assert torch.equal(lib_port.views.double(), lib_ref)
 
 
-@pytest.mark.parametrize("kind", ["fft", "exact"])
+@pytest.mark.parametrize("kind", ["fft", "exact", *F32])
 def test_familiarity_and_decision_equal_the_port(kind):
     config = CONFIGS[kind]
     land, route, spacing, pts, headings = _setup(config, seed=11)
@@ -79,7 +85,7 @@ def test_familiarity_and_decision_equal_the_port(kind):
     lib = train_library(land, route, cfg, device="cpu")
     st = make_statics(land, lib, route, "cpu")
     step = make_step_batched(cfg, config["fam_impl"], "cpu")
-    aux = step.lib_prepare(st)
+    aux = None if step.lib_prepare is None else step.lib_prepare(st)
     n = xy.shape[0]
     state = AgentState(xy, th, torch.zeros(n, dtype=torch.bool),
                        torch.zeros(n, dtype=torch.int32))
