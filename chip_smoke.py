@@ -177,17 +177,25 @@ Phases, one JSON line each:
             evaluated in fp64 (in f32 its absolute coordinates round to
             1.2e-4 px near x = 2048; that error is reported);
 20. memory — captured memory (ROADMAP C.13) on the bench world, with
-            ``capture.MAX_PROGRAMS`` lifted (the caches as before the bound)
-            and then bounded: allocated and reserved GB after each cell of
+            ``capture.MAX_PROGRAMS`` bounded and then lifted (the caches as
+            before the bound): allocated and reserved GB after each cell of
             the default sweep (``run_sweep``), of a grid of 12 distinct
             cells (views x max_steps x fam_impl, one ProgramCache) and of
             40 familiarity maps on distinct configurations (r_max x metric
             x fam_impl), the grid and the maps then revisiting their first
-            two configurations; and the GB of CUDA-graph pools (private
-            pools' segments, from ``torch.cuda.memory_snapshot``). Bounded,
-            the pools after the revisit within 5% of those after the first
-            two configurations, at most MAX_PROGRAMS graphs alive at the
-            end; the sweep's results and launch counts equal to the
+            two configurations; and the GB of the card's graph pool (its
+            segments and the bytes allocated in them, from
+            ``torch.cuda.memory_snapshot``). Each series runs in a pool of
+            its own (``capture.release_pool`` before it), and bounded, each
+            configuration of the grid and the maps also runs alone in a
+            pool of its own: what its programs took, as each had a private
+            pool before they shared one. Bounded, the pool after all
+            configurations within 5% of the most that MAX_PROGRAMS
+            consecutive configurations took alone (what their own pools
+            held at once), the revisit adding at most 5%, at most
+            MAX_PROGRAMS graphs alive at the end, and the pool's segments
+            returned to the card once its graphs are released and the pool
+            given up; the sweep's results and launch counts equal to the
             unbounded run's;
 21. graphs — the JAX package's compiled programs as CUDA graphs
             (``navdv_torch/capture.py``), each against its eager
@@ -2184,29 +2192,48 @@ def run_big_landscape(cfg: SimConfig, land_np: np.ndarray, route: np.ndarray,
     return launches, kernels
 
 
-def _memory_gb() -> dict:
-    """Allocated and reserved GB, then the GB of CUDA-graph pools (the
-    segments of private pools) once the freed blocks are returned: what the
-    live graphs hold, their working sets included, which allocated bytes
-    leave out (a pool's transient blocks are free inside it)."""
+def _pool_segments(pool: tuple) -> list[dict]:
+    """The segments of CUDA-graph pool ``pool`` once the freed blocks are
+    returned to the card."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return [seg for seg in torch.cuda.memory_snapshot() if tuple(seg["segment_pool_id"]) == pool]
+
+
+def _memory_gb(dev: torch.device) -> dict:
+    """Allocated and reserved GB, then the GB of the card's graph pool: its
+    segments (``graph_pool``: the most that live graphs and captures have
+    held, their working sets included, which allocated bytes leave out)
+    and the bytes allocated in them (``graph_active``: the live graphs'
+    outputs)."""
     torch.cuda.synchronize()
     out = {"allocated": torch.cuda.memory_allocated() / 1e9,
            "reserved": torch.cuda.memory_reserved() / 1e9}
-    torch.cuda.empty_cache()
-    out["graph_pools"] = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                             if tuple(seg["segment_pool_id"]) != (0, 0)) / 1e9
+    segs = _pool_segments(tuple(capture.graph_pool(dev)))
+    out["graph_pool"] = sum(seg["total_size"] for seg in segs) / 1e9
+    out["graph_active"] = sum(seg["allocated_size"] for seg in segs) / 1e9
     return out
 
 
 def _clear_program_caches() -> None:
     """Drop every cached probe, statics and aux, and return the freed
-    blocks (graph pools included) to the card."""
+    blocks to the card."""
     _make_familiarity_probe.cache_clear()
     _AUX_CACHE.clear()
     _STATICS_CACHE.clear()
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+
+
+def _fresh_pool(dev: torch.device) -> bool:
+    """Drop every cached program and give up the card's graph pool, so that
+    what runs next captures into a pool of its own. True when the old pool's
+    segments went back to the card."""
+    old = tuple(capture.graph_pool(dev))
+    capture.release_pool(dev)
+    _clear_program_caches()
+    return not _pool_segments(old)
 
 
 def _live_graphs(prefix: str) -> int:
@@ -2217,45 +2244,71 @@ def _live_graphs(prefix: str) -> int:
                if type(o) is capture.Graph and o.args is not None and o.name.startswith(prefix))
 
 
-def _memory_series(calls: list, prefix: str, revisit: int) -> dict:
-    """Run ``calls``, then the first ``revisit`` of them again; the memory
-    after each call, and the live graphs at the end."""
-    n = len(calls)
-    after = [(call(), _memory_gb())[1] for call in calls + calls[:revisit]]
-    out = {key: [m[key] for m in after] for key in after[0]}
-    out.update(configs=n, revisited=revisit, live_graphs=_live_graphs(prefix))
+def _memory_series(calls: list, prefix: str, revisit: int, dev: torch.device,
+                   alone: bool) -> dict:
+    """Run ``calls`` (each given the series' ProgramCache), then the first
+    ``revisit`` of them again, in a graph pool of their own: the memory after
+    each call, the live graphs at the end, and whether giving up the pool
+    then returned its segments. With ``alone``, first each call by itself,
+    with a cache and a pool of its own: that pool's GB (``alone``)."""
+    out = {}
+    if alone:
+        sizes = []
+        for call in calls:
+            _fresh_pool(dev)
+            call(ProgramCache())
+            sizes.append(_memory_gb(dev)["graph_pool"])
+        out["alone"] = sizes
+    _fresh_pool(dev)
+    cache = ProgramCache()
+    after = [(call(cache), _memory_gb(dev))[1] for call in calls + calls[:revisit]]
+    out.update({key: [m[key] for m in after] for key in after[0]})
+    live = _live_graphs(prefix)
+    del cache
+    out.update(configs=len(calls), revisited=revisit, live_graphs=live,
+               pool_returned=_fresh_pool(dev))
     return out
 
 
-def _memory_summary(series: dict) -> dict:
-    """Graph pools and allocated GB after the first configurations (as many
+def _memory_summary(series: dict, bound_n: int) -> dict:
+    """The pool's and allocated GB after the first configurations (as many
     as are revisited), after all, and after the revisit; growth per
-    configuration over the distinct ones."""
+    configuration over the distinct ones. Where the configurations also ran
+    alone: the largest alone, and ``own_pools``, the most that the
+    configurations' own pools held at once, the largest sum of ``bound_n``
+    consecutive ones (a program enters its cache before it captures, so the
+    cache then holds it and the bound_n - 1 before it)."""
     n, k = series["configs"], series["revisited"]
     out = {}
-    for key in ("graph_pools", "allocated"):
+    for key in ("graph_pool", "graph_active", "allocated"):
         v = series[key]
         out[key] = {"after_first": v[k - 1], "after_all": v[n - 1], "after_revisit": v[-1],
                     "growth_per_config": (v[n - 1] - v[0]) / (n - 1)}
+    if "alone" in series:
+        a = series["alone"]
+        seq = a + a[:k]
+        out["largest_alone"] = max(a)
+        out["own_pools"] = max(sum(seq[max(0, i - bound_n + 1):i + 1]) for i in range(len(seq)))
     return out
 
 
 def memory_runs(land: torch.Tensor, route: np.ndarray, libs: dict, tmp: str,
-                revisit: int) -> tuple:
+                revisit: int, dev: torch.device, alone: bool) -> tuple:
     """The three series of the memory phase at the current
-    ``capture.MAX_PROGRAMS``: the default sweep through ``run_sweep``
-    (memory after each cell), the grid of 12 distinct cells through
-    ``run_cell`` and one ProgramCache, and 40 maps on distinct
-    configurations, each then revisiting its first ``revisit``. Also
-    the sweep's results (timing left out) and launch counts."""
+    ``capture.MAX_PROGRAMS``, each in a graph pool of its own: the default
+    sweep through ``run_sweep`` (memory after each cell), the grid of 12
+    distinct cells through ``run_cell`` and one ProgramCache, and 40 maps on
+    distinct configurations, each then revisiting its first ``revisit``
+    (with ``alone``, each configuration of the grid and the maps first runs
+    alone). Also the sweep's results (timing left out) and launch counts."""
     out = {}
-    _clear_program_caches()
+    _fresh_pool(dev)
     cells = []
     run_cell = sweep.run_cell
 
     def recorded(*args, **kw):
         res = run_cell(*args, **kw)
-        cells.append(_memory_gb())
+        cells.append(_memory_gb(dev))
         return res
 
     sweep.run_cell = recorded
@@ -2270,30 +2323,27 @@ def memory_runs(land: torch.Tensor, route: np.ndarray, libs: dict, tmp: str,
     results = {key: {k: np.asarray(v).tolist() for k, v in r.items() if k not in SWEEP_TIMING}
                for key, r in res.items()}
     del res
-    _clear_program_caches()
 
     cfg1 = bench_config(1, VIEWS)[0]
     arc = cfg1.capture_spacing * (VIEWS - 0.5)
-    cache = ProgramCache()
     grid = []
     for views, steps, impl in itertools.product(*MEMORY_GRID):
         cfg = dataclasses.replace(cfg1, capture_spacing=arc / (views - 0.5), agent=dataclasses
                                   .replace(cfg1.agent, max_steps=steps))
         cfg = exact_cfg(cfg) if impl == "kernel" else cfg
-        grid.append(lambda c=cfg, i=impl: sweep.run_cell(land, route, c, SweepSpec().n_trials, 0,
-                                                         i, nav_cache=cache))
-    out["grid_12"] = _memory_series(grid, "early-exit chunk", revisit)
-    del cache, grid
-    _clear_program_caches()
+        grid.append(lambda cache, c=cfg, i=impl: sweep.run_cell(
+            land, route, c, SweepSpec().n_trials, 0, i, nav_cache=cache))
+    out["grid_12"] = _memory_series(grid, "early-exit chunk", revisit, dev, alone)
+    del grid
 
     maps = []
     for r_max, metric, impl in itertools.product(*MEMORY_MAPS):
         cfg = with_scan(libs[r_max][0], metric=metric)
         cfg = exact_cfg(cfg) if impl == "kernel" else cfg
-        maps.append(lambda c=cfg, i=impl, lib=libs[r_max][1]: familiarity_map(
+        # the probes' own caches (analysis._LIVE_PROBES) bound their graphs
+        maps.append(lambda cache, c=cfg, i=impl, lib=libs[r_max][1]: familiarity_map(
             land, lib, c, stride=MEMORY_MAP_STRIDE, fam_impl=i, batch=MEMORY_MAP_BATCH))
-    out["maps_40"] = _memory_series(maps, "familiarity probe", revisit)
-    _clear_program_caches()
+    out["maps_40"] = _memory_series(maps, "familiarity probe", revisit, dev, alone)
     return out, results, launches
 
 
@@ -2301,13 +2351,19 @@ def run_memory(dev: torch.device) -> None:
     """Captured memory (ROADMAP C.13) on the bench world: the default sweep,
     a grid of 12 distinct cells (views x max_steps x fam_impl) and 40
     familiarity maps on distinct configurations (r_max x metric x
-    fam_impl), first with the bound lifted (``capture.MAX_PROGRAMS =
-    None``, the caches as they were before it), then bounded. The grid and
-    the maps then revisit their first MAX_PROGRAMS configurations.
-    Bounded, the graph pools after the revisit must stay within 5% of
-    those after the first configurations, and at most MAX_PROGRAMS graphs
-    may live; the sweep's results and launch counts must equal the
-    unbounded run's."""
+    fam_impl), first bounded, then with the bound lifted
+    (``capture.MAX_PROGRAMS = None``, the caches as they were before it),
+    each series in a graph pool of its own. The grid and the maps then
+    revisit their first MAX_PROGRAMS configurations; bounded, each of their
+    configurations also runs alone first, in a pool of its own.
+    Every graph of a card shares one pool, which keeps the segments it
+    grows by. Bounded, that pool after all configurations must stay within
+    5% of the most that MAX_PROGRAMS consecutive configurations took alone,
+    which their own pools held at once before graphs shared one; the
+    revisit may add at most 5%; at most MAX_PROGRAMS graphs may live; and
+    once the series' graphs are released and the pool given up, its
+    segments must go back to the card. The sweep's results and launch
+    counts must equal the unbounded run's."""
     t_phase = time.perf_counter()
     cfg1, land_np, route = bench_config(1, VIEWS)
     land = torch.as_tensor(land_np, device=dev)
@@ -2318,14 +2374,14 @@ def run_memory(dev: torch.device) -> None:
     bound_n = capture.MAX_PROGRAMS
     out, results, launches = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        for mode, limit in (("unbounded", None), ("bounded", bound_n)):
+        for mode, limit in (("bounded", bound_n), ("unbounded", None)):
             capture.MAX_PROGRAMS = limit
             try:
                 out[mode], results[mode], launches[mode] = memory_runs(
-                    land, route, libs, str(Path(tmp) / mode), bound_n)
+                    land, route, libs, str(Path(tmp) / mode), bound_n, dev, mode == "bounded")
             finally:
                 capture.MAX_PROGRAMS = bound_n
-    summary = {mode: {series: _memory_summary(out[mode][series])
+    summary = {mode: {series: _memory_summary(out[mode][series], bound_n)
                       for series in ("grid_12", "maps_40")} for mode in out}
     # as JSON: a NaN equals itself there
     same = json.dumps(results["bounded"], sort_keys=True) == json.dumps(results["unbounded"],
@@ -2338,12 +2394,19 @@ def run_memory(dev: torch.device) -> None:
     require(launches["bounded"] == launches["unbounded"],
             f"memory: launches {launches['bounded']} bounded, {launches['unbounded']} unbounded")
     for series in ("grid_12", "maps_40"):
-        pools = summary["bounded"][series]["graph_pools"]
-        require(pools["after_revisit"] <= (1 + MEMORY_TOL) * pools["after_first"],
-                f"memory: {series} graph pools {pools['after_revisit']} GB after the revisit, "
-                f"{pools['after_first']} GB after the first {bound_n} configurations")
+        got = summary["bounded"][series]
+        pool = got["graph_pool"]
+        require(pool["after_all"] <= (1 + MEMORY_TOL) * got["own_pools"],
+                f"memory: {series} graph pool {pool['after_all']} GB after all configurations, "
+                f"{got['own_pools']} GB in the configurations' own pools at once")
+        require(pool["after_revisit"] <= (1 + MEMORY_TOL) * pool["after_all"],
+                f"memory: {series} graph pool {pool['after_revisit']} GB after the revisit, "
+                f"{pool['after_all']} GB after all configurations")
         live = out["bounded"][series]["live_graphs"]
         require(live <= bound_n, f"memory: {series} leaves {live} graphs alive, bounded")
+        require(out["bounded"][series]["pool_returned"],
+                f"memory: {series} pool kept its segments after its graphs and the pool went")
+
 
 def _counted(fn):
     """``fn()`` with every launch and collective count zeroed just before

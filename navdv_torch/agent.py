@@ -663,7 +663,7 @@ def make_navigate_batch(
     says whether CUDA graphs run: on the card, unless ``lib_axis`` is a
     gloo group. On the CPU there is no graph; the run goes through the same
     copy-in, call and copy-out around a direct call (the chunked early exit
-    included). ``run.release()`` frees its graphs (their pools and static
+    included). ``run.release()`` frees its graphs (their outputs and static
     buffers); the next call captures again.
     """
     dev = resolve_device(device)

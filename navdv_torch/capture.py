@@ -11,8 +11,8 @@ a program the compiled shape on a CUDA device:
   and device, the tree that holds them, and its non-tensor leaves) copies
   the inputs into static buffers, runs the function once on a side stream
   (which builds the kernels, sets their one-time attributes and creates
-  the cuBLAS handles and workspaces), and only then captures it with
-  ``torch.cuda.graph`` into a private memory pool;
+  the cuBLAS handles and workspaces), and only then captures it into the
+  card's graph pool (below);
 - every call copies its inputs into the static buffers, replays the graph,
   and returns fresh copies of the outputs, never the graph's own buffers,
   so a result held from one call does not change at the next.
@@ -20,9 +20,10 @@ a program the compiled shape on a CUDA device:
 The kernel launch counts (``ops.launch_counts``) and the step's collectives
 (``agent.lib_pmin.calls``) count what ran on the card: each replay adds the
 counts its capture recorded, and the warm-up and the capture add nothing.
-:func:`capture_counts` counts the graphs captured and released.
-A capture that fails raises, with the operation that broke it in the
-traceback; nothing catches it and runs eagerly instead.
+:func:`capture_counts` counts the graphs captured and released, and the
+captures that took new device memory with ``cudaMalloc``. A capture that fails
+raises, with the operation that broke it in the traceback; nothing catches
+it and runs eagerly instead.
 
 A call opens three spans (:mod:`navdv_torch.utils.profiling`):
 ``copy_in``, ``launch`` (the replay) and ``copy_out``. Whether a recording
@@ -30,12 +31,36 @@ is open is part of a graph's key: a graph captured inside one records the
 step's stage marks as event nodes, which the recording reads before the
 graph's next replay; one captured outside holds none.
 
-A graph holds its static buffers and a private memory pool as long as it
-lives, where a jitted JAX function keeps only its executable. So the
-caches that keep captured programs across calls (``sweep.run_sweep``'s
-runs, ``analysis``'s probes) hold them in a :class:`ProgramCache`: at most
+Every graph of a card is captured into one memory pool (:func:`graph_pool`),
+which the process keeps until :func:`release_pool` gives it up, and no
+capture empties the allocator's caches first: ``torch.cuda.graph`` would
+synchronize the card, release every cached block with a synchronizing
+``cudaFree`` and the pinned host cache with it, and the work after the
+capture would allocate all of it again. Where the card runs short, the
+allocator's own out-of-memory path frees the cached blocks outside the pool
+and tries again, but not the pool's free blocks: they serve later captures
+only. A caller that has finished with a large program and knows the point
+is cold calls :func:`release_pool`, and the pool's segments go back to the
+card once its graphs are released.
+
+Graphs that share a pool share scratch: a graph replays into its
+capture-time temporaries, which a graph captured later may hold its
+outputs in. That is sound because the outputs of a replay are read or
+copied before any other graph of the card replays, and replays run in
+order on the caller's stream: :class:`Captured` returns copies at once,
+and the callers of :meth:`Graph.replay` read its result at once and keep
+their states in the static buffers, which are not in the pool.
+
+A graph holds its static buffers and its outputs as long as it lives,
+where a jitted JAX function keeps only its executable. So the caches that
+keep captured programs across calls (``sweep.run_sweep``'s runs,
+``analysis``'s probes) hold them in a :class:`ProgramCache`: at most
 :data:`MAX_PROGRAMS` programs keep their graphs, and an evicted program's
-are released at once; it captures again when it is next called.
+are released at once; it captures again when it is next called. A
+released graph's blocks go back to the pool's free lists, where the next
+capture finds them. So the pool grows only where a capture finds no free
+block large enough, and keeps what it grew by: at most what the programs'
+own pools held at once (``chip_smoke.py``'s memory phase holds it to that).
 
 On a CPU device there is no graph: the same copy-in, call and copy-out run
 around a direct call, which counts as it runs. Collectives that run on the
@@ -59,12 +84,13 @@ MAX_GRAPHS = 4  # input signatures a Captured keeps; the oldest graph goes first
 # captured programs a ProgramCache keeps with their graphs; the least
 # recently used is released first (None: no bound)
 MAX_PROGRAMS = 2
-_COUNTS = {"captures": 0, "releases": 0}
+_COUNTS = {"captures": 0, "releases": 0, "grew": 0}
 
 
 def capture_counts() -> dict[str, int]:
     """Graphs captured (on the CPU: made) and released since the process
-    started."""
+    started, and the captures whose warm-up and capture took new device
+    memory with ``cudaMalloc`` (``"grew"``; 0 on the CPU)."""
     return dict(_COUNTS)
 
 
@@ -131,6 +157,7 @@ def copy_out(tree):
 
 
 _SIDE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
+_POOLS: dict[torch.device, tuple] = {}
 
 
 def _side_stream(dev: torch.device) -> torch.cuda.Stream:
@@ -139,6 +166,50 @@ def _side_stream(dev: torch.device) -> torch.cuda.Stream:
     if dev not in _SIDE_STREAMS:
         _SIDE_STREAMS[dev] = torch.cuda.Stream(device=dev)
     return _SIDE_STREAMS[dev]
+
+
+def _card(dev) -> torch.device:
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def graph_pool(dev: torch.device):
+    """The id of the memory pool every graph of card ``dev`` is captured
+    into. Each graph holds the pool in both allocators that serve a capture,
+    of device memory and of pinned host memory; a pool that no graph holds
+    is freeable in both, and the pinned one refuses it to a later capture.
+    So the pool's first capture is a graph of one launch that is kept with
+    it, and the pool lives until :func:`release_pool`."""
+    dev = _card(dev)
+    if dev not in _POOLS:
+        pool = torch.cuda.graph_pool_handle()
+        target = torch.zeros((), device=dev)
+        keeper = torch.cuda.CUDAGraph()
+        with torch.cuda.device(dev), torch.cuda.stream(_side_stream(dev)):
+            keeper.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                target.zero_()
+            finally:
+                keeper.capture_end()
+        _POOLS[dev] = (pool, keeper, target)
+    return _POOLS[dev][0]
+
+
+def release_pool(dev: torch.device) -> None:
+    """Give up card ``dev``'s graph pool; the next capture starts a new one
+    and allocates it anew. The old pool's segments go back to the card (at
+    the next ``torch.cuda.empty_cache()``, or in the allocator's own
+    out-of-memory retry) once the graphs captured into it are released; they
+    replay as before until then. Nothing on the CPU."""
+    _POOLS.pop(_card(dev), None)
+
+
+def _device_allocs(dev: torch.device) -> int:
+    """Segments the caching allocator has allocated with ``cudaMalloc`` on
+    ``dev``."""
+    return torch.cuda.memory_stats(dev)["num_device_alloc"]
 
 
 class Graph:
@@ -167,9 +238,10 @@ class Graph:
         _COUNTS["captures"] += 1
 
     def _capture(self, dev: torch.device, marked: bool) -> None:
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
+        dev = _card(dev)
+        pool = graph_pool(dev)
         saved = _read_counts()
+        allocs = _device_allocs(dev)
         try:
             side = _side_stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
@@ -179,16 +251,20 @@ class Graph:
             warmed = _read_counts()
             self.graph = torch.cuda.CUDAGraph()
             try:
-                # thread_local: a collective's watchdog thread may query events
                 with (profiling.marking() if marked else contextlib.nullcontext()) as marks, \
-                        torch.cuda.graph(self.graph, stream=side,
-                                         capture_error_mode="thread_local"):
-                    self.out = self.fn(*self.args)
+                        torch.cuda.stream(side):
+                    # thread_local: a collective's watchdog thread may query events
+                    self.graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+                    try:
+                        self.out = self.fn(*self.args)
+                    finally:
+                        self.graph.capture_end()
                 self.marks = marks or None
             except Exception as e:
                 raise RuntimeError(f"{self.name}: CUDA graph capture failed ({e}); the "
                                    "operation that broke it is in the traceback above") from e
             self._delta = [a - b for a, b in zip(_read_counts(), warmed)]
+            _COUNTS["grew"] += _device_allocs(dev) > allocs
         finally:
             _write_counts(saved)
 
@@ -205,8 +281,9 @@ class Graph:
                 dst.copy_(src)
 
     def release(self) -> None:
-        """Free the graph, its memory pool and the static buffers; the
-        Graph cannot replay after this."""
+        """Free the graph, its outputs (their blocks go back to the card's
+        graph pool) and the static buffers; the Graph cannot replay after
+        this."""
         if self.args is not None:
             _COUNTS["releases"] += 1
         if self.graph is not None:
@@ -250,7 +327,7 @@ class Captured:
         return g
 
     def release(self) -> None:
-        """Release every graph (pools and static buffers); the next call
+        """Release every graph (outputs and static buffers); the next call
         captures again."""
         for g in self._graphs.values():
             g.release()

@@ -6,7 +6,8 @@ evicted.
 On the CPU a ``capture.Graph`` holds static buffers but no CUDA graph; the
 bookkeeping is the same, so these tests count live ``Graph`` objects
 (through ``gc``) at the small sizes of ``conftest.py``'s fixtures. The
-``cuda`` cases read the card's allocator and skip here.
+``cuda`` cases read the card's allocator, where every graph is captured
+into the card's one graph pool, and skip here.
 """
 
 import dataclasses
@@ -181,6 +182,33 @@ def test_released_captured_captures_again():
     assert torch.equal(cap(x), want) and len(cap._graphs) == 1
 
 
+def test_capture_counts_grew_is_unchanged_by_a_cpu_run():
+    """``capture_counts()`` carries ``"grew"``, the captures that took new
+    device memory: a CPU run makes its graphs (``"captures"`` rises) and
+    takes none."""
+    before = capture.capture_counts()
+    assert set(before) == {"captures", "releases", "grew"}
+    cap = capture.Captured(lambda x: x * 2.0 + 1.0, CPU, "grew test")
+    cap(torch.arange(6.0))
+    cap(torch.arange(7.0))
+    now = capture.capture_counts()
+    assert now["captures"] == before["captures"] + 2
+    assert now["grew"] == before["grew"]
+
+
+def test_release_pool_is_a_no_op_on_the_cpu():
+    """``release_pool`` on the CPU holds no pool to give up: a CPU run goes
+    on as before, counting its graphs."""
+    cap = capture.Captured(lambda x: x * 2.0 + 1.0, CPU, "release pool test")
+    x = torch.arange(5.0)
+    before = capture.capture_counts()
+    capture.release_pool(CPU)
+    assert torch.equal(cap(x), x * 2.0 + 1.0)
+    capture.release_pool(CPU)
+    assert torch.equal(cap(x), x * 2.0 + 1.0)
+    assert capture.capture_counts()["captures"] == before["captures"] + 1
+
+
 class _Program:
     def __init__(self):
         self.released = 0
@@ -229,35 +257,50 @@ def dev():
 
 
 def _graph_pool_bytes(dev) -> int:
-    """Bytes of the card's CUDA-graph pools (private pools' segments) once
-    the freed blocks are returned."""
+    """Bytes of the card's CUDA-graph pools (segments outside the default
+    pool) once the freed blocks are returned."""
     torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()
     return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                if tuple(seg["segment_pool_id"]) != (0, 0))
 
 
+def _pool_segments(dev) -> set:
+    """(address, bytes) of each segment of the card's one graph pool, once
+    the freed blocks are returned."""
+    pool = tuple(capture.graph_pool(torch.device("cuda", torch.cuda.current_device())))
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    return {(seg["address"], seg["total_size"]) for seg in torch.cuda.memory_snapshot()
+            if tuple(seg["segment_pool_id"]) == pool}
+
+
 @pytest.mark.cuda
 def test_sweep_memory_stops_growing_on_card(dev, small_world):
     """On the card: six distinct configurations, then the first
     MAX_PROGRAMS again, through one ProgramCache: the graph pools after the
-    revisit are what they were after the first ones (within 5%), and
-    releasing every cached run frees its pools."""
+    revisit are what they were after the first ones (within 5%). Releasing
+    every cached run gives its blocks back to the card's graph pool, which
+    keeps its segments, and the six configurations run again in them: they
+    add no segment."""
     landscape, route = small_world
     spec = _grid_spec()
     cells = [cfg for _, cfg, _ in spec.cells()]
     cache = capture.ProgramCache()
     land = torch.as_tensor(landscape, device=dev)
-    base = _graph_pool_bytes(dev)  # other tests' graphs
     pools = []
     for cfg in cells + cells[:capture.MAX_PROGRAMS]:
         sweep.run_cell(land, route, cfg, spec.n_trials, spec.seed, nav_cache=cache, device=dev)
         pools.append(_graph_pool_bytes(dev))
     assert pools[-1] <= 1.05 * pools[capture.MAX_PROGRAMS - 1], pools
     assert _live_graphs("early-exit chunk") <= capture.MAX_PROGRAMS
+    held = _pool_segments(dev)
     for key in list(cache):
         cache[key].release()
-    assert _graph_pool_bytes(dev) == base
+    assert _pool_segments(dev) == held
+    for cfg in cells:
+        sweep.run_cell(land, route, cfg, spec.n_trials, spec.seed, nav_cache=cache, device=dev)
+    assert _pool_segments(dev) <= held
 
 
 @pytest.mark.cuda

@@ -254,7 +254,8 @@ def test_recordings_do_not_nest_and_close_on_error():
 
 def test_capture_counts_captures_and_releases(monkeypatch):
     """One capture per new signature, one release per graph evicted or
-    released; a graph released twice counts once."""
+    released; a graph released twice counts once; on the CPU no capture
+    takes device memory."""
     monkeypatch.setattr(capture, "MAX_GRAPHS", 2)
     cap = capture.Captured(lambda x: x * 2, "cpu", "test")
     before = capture.capture_counts()
@@ -265,11 +266,11 @@ def test_capture_counts_captures_and_releases(monkeypatch):
 
     cap(torch.ones(2))
     cap(torch.zeros(2))  # the same signature
-    assert delta() == {"captures": 1, "releases": 0}
+    assert delta() == {"captures": 1, "releases": 0, "grew": 0}
     cap(torch.ones(3))
     cap(torch.ones(4))  # a third signature evicts the first
-    assert delta() == {"captures": 3, "releases": 1}
+    assert delta() == {"captures": 3, "releases": 1, "grew": 0}
     graphs = list(cap._graphs.values())
     cap.release()
     graphs[0].release()
-    assert delta() == {"captures": 3, "releases": 3}
+    assert delta() == {"captures": 3, "releases": 3, "grew": 0}
