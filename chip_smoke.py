@@ -118,11 +118,12 @@ Phases, one JSON line each:
             timed beside the port's unfold product (equal to 1e-12);
 15. infomax — (after conv) the learned memory at config 1's width (1024
             agents, AUTO dose) on the main library: trained on the card
-            (seconds), one epoch on the card within 1e-4 (relative
-            Frobenius) of the CPU's from the same initial weights, the
-            ``.npz`` checkpoint giving bit-equal ``step.fam``, one episode
-            (success reported only), window and render launched and no
-            distance kernel;
+            (seconds; ``infomax_counts()`` one training of
+            ``applied_updates`` updates), one epoch on the card within
+            1e-4 (relative Frobenius) of the CPU's from the same initial
+            weights, the ``.npz`` checkpoint giving bit-equal
+            ``step.fam``, one episode (success reported only), window and
+            render launched and no distance kernel;
 16. analysis — (after sweep) config 1 as shipped: the RIDF valley within
             one fine bin of 0 on ``"kernel"`` and ``"auto"``, the stride-8
             familiarity map (3,844 positions, 4 batches of 1024) on
@@ -326,7 +327,13 @@ from navdv_torch.familiarity import (
 )
 from navdv_torch.familiarity_conv import conv_lag_geometry, unfold_contraction
 from navdv_torch.familiarity_fft import make_lib_min_fft
-from navdv_torch.familiarity_infomax import applied_updates, initial_weights, train_infomax
+from navdv_torch.familiarity_infomax import (
+    applied_updates,
+    infomax_counts,
+    initial_weights,
+    reset_infomax_counts,
+    train_infomax,
+)
 from navdv_torch.familiarity_roll import make_lib_min_roll
 from navdv_torch.landscape import make_landscape
 from navdv_torch.metrics import episode_metrics, success_rate
@@ -1741,9 +1748,10 @@ def _rel_fro(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def run_infomax(cfg, st, states0, poses) -> dict:
     """The learned memory at config 1's width (B=1024, cutoff 0) on the main
-    episode's library with the AUTO dose: training on the card (seconds),
-    one epoch on the card against the CPU from the same initial weights and
-    library (relative Frobenius difference <= 1e-4), the checkpoint round
+    episode's library with the AUTO dose: training on the card (seconds;
+    its counters one training of ``applied_updates`` updates), one epoch on
+    the card against the CPU from the same initial weights and library
+    (relative Frobenius difference <= 1e-4), the checkpoint round
     trip (bit-equal ``step.fam``), one episode on the main trials (success
     reported only: another model than perfect memory; window and render
     launched, no distance kernel).
@@ -1753,10 +1761,12 @@ def run_infomax(cfg, st, states0, poses) -> dict:
     m = scan.infomax_units or p
     step = make_step_batched(cfg, "infomax")
     torch.cuda.synchronize()
+    reset_infomax_counts()
     t0 = time.perf_counter()
     pack = step.lib_prepare(st)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
+    training = infomax_counts()
     nl = int(st.lib.views.shape[0])
     updates = applied_updates(st.lib, scan.infomax_epochs, cfg.capture_spacing)
 
@@ -1788,7 +1798,8 @@ def run_infomax(cfg, st, states0, poses) -> dict:
     t_max = cfg.agent.max_steps
     emit({
         "phase": "infomax", "config": 1, "fam_impl": "infomax", "batch": BATCH, "max_steps": t_max,
-        "library_views": nl, "units": m, "updates": updates, "train_s": train_s,
+        "library_views": nl, "units": m, "updates": updates, "training_counts": training,
+        "train_s": train_s,
         "train_updates_per_s": updates / train_s, "one_epoch_card_vs_cpu_rel_fro": rel_one,
         "checkpoint_bytes": size, "checkpoint_fam_bit_equal": ckpt_equal,
         "success_rate": rate, "episode_s": episode_s,
@@ -1796,6 +1807,8 @@ def run_infomax(cfg, st, states0, poses) -> dict:
         "device_ms_per_step": step_device_ms(step, states0, st, pack),
         "seconds": time.perf_counter() - t_phase,
     })
+    require(training["trainings"] == 1 and training["updates"] == updates,
+            f"infomax: the training counted {training}, not one of {updates} updates")
     require(rel_one <= 1e-4, f"infomax: one epoch on the card vs the CPU, {rel_one} > 1e-4")
     require(ckpt_equal, "infomax: the loaded network scores differently")
     require_render_only(counts, "infomax")

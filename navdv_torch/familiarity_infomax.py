@@ -18,6 +18,12 @@ The initial weights come from a ``torch.Generator`` seeded with
 same W; the same seed gives another network than the JAX package's
 threefry draw (ROADMAP C.11). ``train_infomax(..., w0=...)`` takes the
 initial weights from the caller instead.
+
+Tracing (:mod:`navdv_torch.utils.profiling`): :func:`train_infomax` runs in
+the span ``infomax_train``, and :func:`infomax_counts` counts, since the last
+:func:`reset_infomax_counts`, the trainings and the updates they applied.
+Both are bookkept once a training; the scoring keeps the step's
+``candidates`` and ``familiarity`` stages.
 """
 
 from __future__ import annotations
@@ -29,6 +35,21 @@ import torch
 from navdv_torch.capture import Captured
 from navdv_torch.device import as_tensor
 from navdv_torch.familiarity import NCC_EPS, LibraryPack
+from navdv_torch.utils.profiling import span
+
+_COUNTS = {"trainings": 0, "updates": 0}
+
+
+def infomax_counts() -> dict[str, int]:
+    """Since the last reset: :func:`train_infomax` calls (``"trainings"``)
+    and the updates they applied (``"updates"``, :func:`applied_updates`
+    summed)."""
+    return dict(_COUNTS)
+
+
+def reset_infomax_counts() -> None:
+    for name in _COUNTS:
+        _COUNTS[name] = 0
 
 
 class InfomaxPack(NamedTuple):
@@ -110,38 +131,43 @@ def train_infomax(lib: LibraryPack, n_units: int, eta: float, epochs: int, seed:
     fractional epoch (at most one pass over the views) runs eagerly after
     them. ``captured=False`` runs every update from the host instead, the
     loop the graph replays; W is the same bit for bit."""
-    z = lib.z.float()  # [Nl, P]
-    nl, p = z.shape
-    epochs, frac_rows = dose_schedule(nl, p, epochs, capture_spacing)
-    if w0 is None:
-        w0 = initial_weights(n_units, p, seed)
-    w = as_tensor(w0, torch.float32, z.device).clone()  # trained in place
-    scale = eta / p
-    # the one host read before the loop: which views update, and by how much
-    valid = [float(v) for v in lib.valid.cpu()]
+    with span("infomax_train"):
+        z = lib.z.float()  # [Nl, P]
+        nl, p = z.shape
+        epochs, frac_rows = dose_schedule(nl, p, epochs, capture_spacing)
+        if w0 is None:
+            w0 = initial_weights(n_units, p, seed)
+        w = as_tensor(w0, torch.float32, z.device).clone()  # trained in place
+        scale = eta / p
+        # the one host read before the loop: which views update, and by how much
+        valid = [float(v) for v in lib.valid.cpu()]
+        per_epoch = sum(v != 0.0 for v in valid)  # updates an epoch applies
+        frac = sum(valid[i] != 0.0 for i in frac_rows)
 
-    def present(w, z, rows):
-        for i in rows:
-            if valid[i] == 0.0:
-                continue  # w + 0 * dW == w
-            h = torch.mv(w, z[i])  # [M]
-            hw = torch.mv(w.t(), h)  # [P] == h^T W
-            dw = torch.addr(w, torch.tanh(h).add_(h), hw, alpha=-1.0)  # W - (y + h) (h^T W)
-            w.add_(dw, alpha=scale * valid[i])
-        return w
+        def present(w, z, rows):
+            for i in rows:
+                if valid[i] == 0.0:
+                    continue  # w + 0 * dW == w
+                h = torch.mv(w, z[i])  # [M]
+                hw = torch.mv(w.t(), h)  # [P] == h^T W
+                dw = torch.addr(w, torch.tanh(h).add_(h), hw, alpha=-1.0)  # W - (y + h) (h^T W)
+                w.add_(dw, alpha=scale * valid[i])
+            return w
 
-    if captured and epochs > 0:
-        epoch = Captured(lambda w, z: present(w, z, range(nl)), z.device, "infomax epoch")
-        g = epoch.graph(w, z)
-        g.load(w, z)
-        for _ in range(epochs):
-            g.replay()
-        w = g.args[0].clone()
-    else:
-        for _ in range(epochs):
-            present(w, z, range(nl))
-    present(w, z, frac_rows)
-    return InfomaxPack(w=w, wsum=torch.sum(w, dim=1))
+        if captured and epochs > 0:
+            epoch = Captured(lambda w, z: present(w, z, range(nl)), z.device, "infomax epoch")
+            g = epoch.graph(w, z)
+            g.load(w, z)
+            for _ in range(epochs):
+                g.replay()
+            w = g.args[0].clone()
+        else:
+            for _ in range(epochs):
+                present(w, z, range(nl))
+        present(w, z, frac_rows)
+        _COUNTS["trainings"] += 1
+        _COUNTS["updates"] += epochs * per_epoch + frac
+        return InfomaxPack(w=w, wsum=torch.sum(w, dim=1))
 
 
 def make_lib_min_infomax(sensor_cfg, scan_cfg, capture_spacing=None):

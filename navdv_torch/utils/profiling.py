@@ -5,7 +5,8 @@ Three kinds of record, placed where the work happens:
 
 - :func:`span` brackets host work (``simulator.NavigationSimulator
   .navigate`` and its parts, ``capture.Captured``'s copy-in, launch and
-  copy-out, the mesh's sharded episode). Off, it costs one check. Under
+  copy-out, the mesh's sharded episode, ``familiarity_infomax
+  .train_infomax`` as ``infomax_train``). Off, it costs one check. Under
   ``torch.profiler`` it is a ``record_function("navdv.<name>")`` user
   annotation, on the device trace's clock. Inside :func:`recording` it is
   kept in memory: name, parent, start and end (``time.perf_counter_ns``).
@@ -20,7 +21,8 @@ Three kinds of record, placed where the work happens:
   else (the CPU, the eager episode, a warm-up) a mark does nothing.
 - Counters stay plain integers beside the code they count:
   ``ops.launch_counts()``, ``agent.lib_pmin.calls``
-  (``parallel.collective_counts()``), ``capture.capture_counts()``.
+  (``parallel.collective_counts()``), ``capture.capture_counts()``,
+  ``familiarity_infomax.infomax_counts()``.
 
 Usage::
 
